@@ -1,12 +1,11 @@
-"""Analytic-scene leaf-count scaling microbench (VERDICT r2 missing #1).
+"""Analytic-scene leaf-count scaling microbench.
 
 An L-sphere grid inside an emitting enclosure, 131k incoherent rays,
-12 bounces, forward trace: rays/s vs total leaf count. Round-2 baseline
-(per-type streaming, VPU mat-vec transforms): LINEAR cost —
-L=33 -> 7.4M rays/s, 109 -> 1.15M, 257 -> 0.65M, 501 -> 0.43M.
+12 bounces, forward trace: rays/s vs total leaf count. The tracer streams
+every leaf, so the cost is expected to grow linearly (ROADMAP S3); not
+measured on the H100 yet. Prints one JSON line per grid size.
 
-Usage: python benchmarks/leafscale.py          (real TPU)
-Writes benchmarks/leafscale.json.
+Usage: python benchmarks/leafscale.py
 """
 
 import json
@@ -59,8 +58,10 @@ def main():
 
     from source_tpu.compiler import SpectralConfig, compile_scene
     from source_tpu.parallel.engine import render_batch
+    from source_tpu.runtime import enable_compile_cache
     from source_tpu.tracer.wavefront import RayConfig
 
+    enable_compile_cache()
     key = jax.random.PRNGKey(0)
     d = jax.random.normal(key, (N_RAYS, 3))
     d = d / jnp.linalg.norm(d, axis=-1, keepdims=True)
@@ -70,7 +71,6 @@ def main():
                     extinction_min_depth=3, importance_sampling=False,
                     max_iters=MAX_ITERS)
 
-    results = {}
     for n in GRID_COUNTS:
         world, leaves = build_grid_world(n)
         scene = compile_scene(world, SpectralConfig(375.0, 740.0, 8))
@@ -85,16 +85,12 @@ def main():
         dt = (time.perf_counter() - t0) / reps
         rate = N_RAYS / dt
         seg_rate = int(seg) / dt
-        results[str(leaves)] = {
+        print(json.dumps({
             "leaves": leaves, "wall_s": round(dt, 4),
             "rays_per_s": round(rate, 1),
             "segments_per_s": round(seg_rate, 1),
-        }
-        print(json.dumps(results[str(leaves)]), flush=True)
-
-    out = os.path.join(os.path.dirname(os.path.abspath(__file__)), "leafscale.json")
-    with open(out, "w") as f:
-        json.dump(results, f, indent=1)
+            "device_kind": jax.devices()[0].device_kind,
+        }), flush=True)
 
 
 if __name__ == "__main__":

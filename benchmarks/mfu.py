@@ -1,34 +1,12 @@
-"""Roofline / speed-of-light analysis for the flagship benchmark program.
+"""XLA cost-model work and achieved rates for the flagship benchmark program.
 
 Jits the SAME program bench.py times (benchmarks/flagship.py: glass Cornell
-512x512, identical RayConfig), pulls XLA's cost model for the compiled
-binary (FLOPs + bytes accessed), measures wall time, and reports achieved
-FLOP/s and HBM bandwidth against the chip peaks. The roofline consumption
-max(flops/peak_flops, bytes/peak_bw) says how far the program is from
-speed of light and WHICH wall it approaches; for this bandwidth-bound
-tracer,
+512x512, identical RayConfig), reads XLA's cost model for the compiled
+binary (FLOPs and bytes accessed), measures wall time, and prints the
+achieved FLOP/s and bytes/s with the device they ran on. It divides by no
+peak: the H100 peak table comes with the benchmark (ROADMAP S1).
 
-    ceiling_segments_per_s = achieved_segments_per_s / hbm_peak_frac
-
-is the rate the SAME program would reach at 100% of HBM bandwidth, so
-``achieved_vs_ceiling`` == hbm_peak_frac is the single number BASELINE.md
-tracks (VERDICT r2 #1: one shared config, one defensible fraction).
-
-TPU v5e peaks (public spec): 394 TFLOP/s bf16 MXU, ~98 TFLOP/s f32,
-819 GB/s HBM; VPU elementwise f32 modelled at ~3.9 TFLOP/s (4 ALUs x
-8x128 lanes x ~0.94 GHz).
-
-Round-5 note: the hot path now runs inside Pallas kernels, which XLA's
-cost analysis cannot see into (custom calls report ~zero flops/bytes), so
-this script counts the kernels' work ANALYTICALLY: the shared bounce core
-(and its vjp) is lowered as a standalone XLA function to get flops per
-lane-bounce, multiplied by the lane-bounces the span structure executes;
-kernel HBM traffic is modelled from the block specs. The binding roofline
-for the round-5 program is the VPU (compute-bound — see
-BASELINE.md/glue_probe3).
-
-Usage: python benchmarks/mfu.py          (real TPU)
-Writes benchmarks/mfu.json.
+Usage: python benchmarks/mfu.py
 """
 
 import json
@@ -38,12 +16,6 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-PEAK_HBM_GBS = 819.0  # v5e
-PEAK_BF16_TFLOPS = 394.0  # v5e MXU
-PEAK_F32_TFLOPS = 98.5  # v5e MXU f32 (bf16/4)
-PEAK_VPU_F32_TFLOPS = 3.9  # v5e VPU elementwise estimate (the fused
-# tracer runs on the VPU — no matmuls in the hot path)
-
 
 def main():
     import jax
@@ -51,125 +23,45 @@ def main():
 
     from benchmarks.flagship import BINS, build
     from source_tpu.parallel.engine import render_batch, render_loss_and_grads
+    from source_tpu.runtime import enable_compile_cache
 
+    enable_compile_cache()
     scene, cfg, o, d = build()
     target = jnp.zeros((o.shape[0], BINS), jnp.float32)
     key = jax.random.PRNGKey(0)
 
     # actual traced segments (roulette-truncated) — the SAME denominator
-    # bench.py uses, not the pre-compaction upper bound
+    # bench.py uses
     segments = int(jax.jit(
         lambda s, k: render_batch(s, cfg, o, d, k).segments
     )(scene, key))
 
-    # --- analytic Pallas-kernel work model --------------------------------
-    from source_tpu.tracer import pallas_fused as pf
-
-    fspec = pf.fused_spec(scene, cfg)
-    gspec = pf.general_spec(fspec)
-    B = fspec.bins
-
-    def _core_flops(spec_):
-        """XLA-counted flops of ONE lane-bounce of the shared bounce core
-        (forward) and of its vjp (backward), lowered standalone."""
-        def fwd1(tab, o3, d3, thr, alivef, depth, u):
-            out = pf._bounce_core(
-                spec_, lambda k: tab[k],
-                {"o": o3, "d": d3, "thr": thr, "alive": alivef > 0.5,
-                 "depth": depth}, u, None)
-            return out["o"], out["d"], out["thr"], out["rad_delta"], out["bits"]
-
-        z = jnp.zeros((1,))
-        args = (jnp.zeros((pf.tab_size(spec_),)), (z,) * 3, (z,) * 3,
-                (z,) * B, z, z, (z,) * 10)
-        c = jax.jit(fwd1).lower(*args).compile().cost_analysis()
-        c = c[0] if isinstance(c, list) else c
-        f_fwd = float(c.get("flops", 0.0))
-
-        def bwd1(tab, o3, d3, thr, alivef, depth, u):
-            def f(o3_, d3_, thr_):
-                out = pf._bounce_core(
-                    spec_, lambda k: tab[k],
-                    {"o": o3_, "d": d3_, "thr": thr_,
-                     "alive": alivef > 0.5, "depth": depth}, u,
-                    jnp.zeros((1,), jnp.int32))
-                return out["o"], out["d"], out["thr"], out["rad_delta"]
-            _, vjp = jax.vjp(f, o3, d3, thr)
-            return vjp(((z,) * 3, (z,) * 3, (z,) * B, (z,) * B))
-
-        c = jax.jit(bwd1).lower(*args).compile().cost_analysis()
-        c = c[0] if isinstance(c, list) else c
-        return f_fwd, float(c.get("flops", 0.0))
-
-    f_fwd_lane, f_bwd_lane = _core_flops(gspec)
-    # lane-bounces per trace from the compaction schedule (full vector
-    # width per bounce — dead lanes compute too)
-    N = o.shape[0]
-    lane_bounces = 0
-    n_left, done = N, 0
-    sched = list(cfg.compact_schedule) + [(cfg.max_iters, 1)]
-    for steps, div in sched:
-        steps = min(steps, cfg.max_iters - done)
-        if steps <= 0:
-            break
-        lane_bounces += steps * n_left
-        done += steps
-        n_left = max(1, n_left // div)
-    pallas_flops = {"forward": f_fwd_lane * lane_bounces,
-                    "fwd_bwd": (2 * f_fwd_lane + f_bwd_lane) * lane_bounces}
-    # kernel HBM traffic model: state once per span boundary + u + bits
-    planes = (2 * (8 + 2 * B + 2) + 10 * cfg.max_iters + cfg.max_iters)
-    pallas_bytes = planes * N * 4.0
-    report = {"model": {
-        "core_flops_per_lane_bounce": {"fwd": f_fwd_lane, "bwd": f_bwd_lane},
-        "lane_bounces": lane_bounces,
-        "vpu_peak_tflops": PEAK_VPU_F32_TFLOPS,
-    }}
     for name, fn in [
         ("forward", lambda s, k: render_batch(s, cfg, o, d, k).radiance),
         ("fwd_bwd", lambda s, k: render_loss_and_grads(s, cfg, o, d, k, target)),
     ]:
-        lowered = jax.jit(fn).lower(scene, key)
-        compiled = lowered.compile()
+        compiled = jax.jit(fn).lower(scene, key).compile()
         cost = compiled.cost_analysis()
         if isinstance(cost, list):  # older jax returns [dict]
             cost = cost[0]
-        flops = float(cost.get("flops", 0.0)) + pallas_flops[name]
-        bytes_accessed = (float(cost.get("bytes accessed", 0.0))
-                          + pallas_bytes)
+        flops = float(cost.get("flops", 0.0))
+        bytes_accessed = float(cost.get("bytes accessed", 0.0))
 
-        out = compiled(scene, key)
-        jax.block_until_ready(out)
-        t0 = time.perf_counter()
+        jax.block_until_ready(compiled(scene, key))
         reps = 3
+        t0 = time.perf_counter()
         for i in range(reps):
             out = compiled(scene, jax.random.PRNGKey(i + 1))
         jax.block_until_ready(out)
         dt = (time.perf_counter() - t0) / reps
-
-        tflops = flops / dt / 1e12
-        gbs = bytes_accessed / dt / 1e9
-        flop_frac = tflops / PEAK_VPU_F32_TFLOPS
-        bw_frac = gbs / PEAK_HBM_GBS
-        seg_rate = segments / dt
-        report[name] = {
-            "wall_s": round(dt, 4),
-            "xla_tflops": round(tflops, 2),
-            "xla_hbm_gbs": round(gbs, 1),
-            "flop_peak_frac": round(flop_frac, 4),
-            "hbm_peak_frac": round(bw_frac, 4),
-            "roofline_bound": "hbm" if bw_frac > flop_frac else "flops",
-            "segments_per_s": round(seg_rate, 1),
-            "ceiling_segments_per_s": round(
-                seg_rate / max(max(bw_frac, flop_frac), 1e-9), 1
-            ),
-            "achieved_vs_ceiling": round(max(bw_frac, flop_frac), 4),
-        }
-        print(json.dumps({"kernel": name, **report[name]}), flush=True)
-
-    out_path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "mfu.json")
-    with open(out_path, "w") as f:
-        json.dump(report, f, indent=1)
+        print(json.dumps({
+            "program": name, "device_kind": jax.devices()[0].device_kind,
+            "wall_s": round(dt, 6), "xla_flops": flops,
+            "xla_bytes": bytes_accessed,
+            "achieved_tflops": round(flops / dt / 1e12, 4),
+            "achieved_gbs": round(bytes_accessed / dt / 1e9, 2),
+            "segments_per_s": round(segments / dt, 1),
+        }), flush=True)
 
 
 if __name__ == "__main__":

@@ -6,9 +6,9 @@ against that compatibility API take the host path — built-ins fold
 statistics on device. This benchmark renders one scene twice (device
 RGB pipeline vs a custom PixelProcessor pipeline) and records the
 host-path overhead so the claim in BASELINE.md is measured, not
-asserted. Runs on CPU or TPU; the RATIO is the tracked quantity.
+asserted. Runs on the CPU or the GPU; the RATIO is the tracked quantity.
 
-Usage: python benchmarks/pixelproc.py  -> benchmarks/pixelproc.json
+Usage: python benchmarks/pixelproc.py
 """
 
 import json
@@ -27,6 +27,9 @@ def main():
     from source_tpu.optical.observer import (
         PinholeCamera, PixelProcessor, Pipeline2D, RGBPipeline2D,
     )
+    from source_tpu.runtime import enable_compile_cache
+
+    enable_compile_cache()
 
     class _MeanProcessor(PixelProcessor):
         def __init__(self):
@@ -79,9 +82,6 @@ def main():
         "host_path_overhead_x": round(t_proc / t_dev, 2),
     }
     print(json.dumps(res))
-    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                           "pixelproc.json"), "w") as f:
-        json.dump(res, f, indent=1)
 
 
 if __name__ == "__main__":

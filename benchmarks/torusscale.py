@@ -1,13 +1,12 @@
-"""Torus-grid leaf scaling (VERDICT r4 next #5 done-criterion): the torus
-now rides in the packet leaf BVH as an inline Newton-polished quartic
-leaf; its per-ray cost must scale sublinearly in torus count like every
-other type (vs the r4 linear per-type streaming). Grid of tori inside an
-emitting enclosure, 131k incoherent rays, 8 bounces, forward trace.
+"""Torus-grid leaf scaling: rays/s vs torus count. Grid of tori inside an
+emitting enclosure, 131k incoherent rays, 8 bounces, forward trace. Every
+torus leaf is streamed (a quartic per ray per torus), so the cost grows
+linearly in torus count (ROADMAP S3); not measured on the H100 yet.
+Prints one JSON line per grid size.
 
-Usage: python benchmarks/torusscale.py          (real TPU)
-Writes benchmarks/torusscale.json.
+Usage: python benchmarks/torusscale.py
 """
-import json, math, os, sys, time
+import json, os, sys, time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 N_RAYS = 1 << 17
@@ -15,8 +14,7 @@ MAX_ITERS = 8
 GRID_COUNTS = [27, 125, 343]
 
 
-def build_grid_world(n_tori, force):
-    os.environ["SOURCE_TPU_LEAF_BVH"] = force
+def build_grid_world(n_tori):
     from source_tpu.core.math.transform import rotate_x, translate
     from source_tpu.core.scenegraph import World
     from source_tpu.optical.material import Lambert, UniformSurfaceEmitter
@@ -52,45 +50,37 @@ def main():
 
     from source_tpu.compiler import SpectralConfig, compile_scene
     from source_tpu.parallel.engine import render_batch
+    from source_tpu.runtime import enable_compile_cache
     from source_tpu.tracer.wavefront import RayConfig
 
+    enable_compile_cache()
     key = jax.random.PRNGKey(0)
-    results = {}
     for n_tori in GRID_COUNTS:
-        for force, tag in (("1", "bvh"), ("0", "stream")):
-            if force == "0" and n_tori > 130:
-                continue  # streaming at 343 tori would take minutes
-            w = build_grid_world(n_tori, force)
-            scene = compile_scene(w, SpectralConfig(400.0, 700.0, 4))
-            cfg = RayConfig(max_depth=MAX_ITERS, max_iters=MAX_ITERS,
-                            extinction_prob=0.1, extinction_min_depth=2,
-                            compact_schedule=(), early_exit=False)
-            side_len = 0.5 * (round(n_tori ** (1 / 3.0))) * 2.6 + 2.0
-            u = jax.random.uniform(key, (N_RAYS, 3)) * 2.0 - 1.0
-            o = u * side_len
-            d = jax.random.normal(jax.random.fold_in(key, 1), (N_RAYS, 3))
-            d = d / jnp.linalg.norm(d, axis=-1, keepdims=True)
-            fwd = jax.jit(lambda s, k: render_batch(s, cfg, o, d, k).segments)
+        scene = compile_scene(build_grid_world(n_tori),
+                              SpectralConfig(400.0, 700.0, 4))
+        cfg = RayConfig(max_depth=MAX_ITERS, max_iters=MAX_ITERS,
+                        extinction_prob=0.1, extinction_min_depth=2,
+                        compact_schedule=(), early_exit=False)
+        side_len = 0.5 * (round(n_tori ** (1 / 3.0))) * 2.6 + 2.0
+        u = jax.random.uniform(key, (N_RAYS, 3)) * 2.0 - 1.0
+        o = u * side_len
+        d = jax.random.normal(jax.random.fold_in(key, 1), (N_RAYS, 3))
+        d = d / jnp.linalg.norm(d, axis=-1, keepdims=True)
+        fwd = jax.jit(lambda s, k: render_batch(s, cfg, o, d, k).segments)
 
-            seg = int(fwd(scene, key))
-            ts = []
-            for g in range(3):
-                t0 = time.perf_counter()
-                outs = [fwd(scene, jax.random.fold_in(key, 10 + g * 5 + i))
-                        for i in range(3)]
-                jax.block_until_ready(outs)
-                ts.append((time.perf_counter() - t0) / 3)
-            dt = min(ts)
-            results[f"{tag}_{n_tori}"] = {
-                "rays_per_s": round(N_RAYS * MAX_ITERS / dt, 1),
-                "segments_per_s": round(seg / dt, 1), "wall_ms": round(dt * 1e3, 2),
-            }
-            print(json.dumps({"tori": n_tori, "path": tag,
-                              **results[f"{tag}_{n_tori}"]}), flush=True)
-    out = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                       "torusscale.json")
-    with open(out, "w") as f:
-        json.dump(results, f, indent=1)
+        seg = int(fwd(scene, key))
+        ts = []
+        for g in range(3):
+            t0 = time.perf_counter()
+            outs = [fwd(scene, jax.random.fold_in(key, 10 + g * 5 + i))
+                    for i in range(3)]
+            jax.block_until_ready(outs)
+            ts.append((time.perf_counter() - t0) / 3)
+        dt = min(ts)
+        print(json.dumps({
+            "tori": n_tori, "rays_per_s": round(N_RAYS * MAX_ITERS / dt, 1),
+            "segments_per_s": round(seg / dt, 1), "wall_ms": round(dt * 1e3, 2),
+            "device_kind": jax.devices()[0].device_kind}), flush=True)
 
 
 if __name__ == "__main__":

@@ -2,7 +2,7 @@
 //
 // Native-host counterpart of the reference's kd-tree build
 // (raysect/core/math/spatial/kdtree3d.pyx:166-393, SAH with PBRT-style
-// auto depth) re-designed for TPU traversal: the output is a *threaded*
+// auto depth) re-designed for device traversal: the output is a *threaded*
 // flat array in depth-first order where every node stores its escape
 // index (node + subtree size).  Device traversal then needs no stack:
 //

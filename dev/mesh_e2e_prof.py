@@ -1,4 +1,4 @@
-"""Profile the e2e mesh suite scene on the real TPU: where does the time go?
+"""Profile the e2e mesh suite scene on the device: where does the time go?
 
 Times (a) one warm observe() pass wall, (b) the raw jitted render_batch on a
 flat ray batch of the same size, (c) the same batch with the two meshes
@@ -69,7 +69,7 @@ def main():
     from source_tpu.core import Point3D
     from source_tpu.optical.material import Lambert, UniformSurfaceEmitter
     from source_tpu.optical import ConstantSF
-    from source_tpu.library import d65_white
+    from source_tpu.optical.library import d65_white
     w2 = World()
     Box(Point3D(-10, -0.1, -10), Point3D(10, 0, 10), parent=w2,
         material=Lambert(ConstantSF(0.6)))

@@ -1,7 +1,8 @@
-"""/verify driver: exercise the public library surface end-to-end,
-including this round's fused megakernel and CSG-interval kernel paths."""
+"""Verify driver: exercise the public library surface end-to-end on the
+CPU (JAX_PLATFORMS=cpu python dev/verify_driver.py); the GPU run is
+chip_smoke.py."""
 import os, sys
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np
 import jax.numpy as jnp
 
@@ -39,46 +40,20 @@ rad = np.asarray(out.radiance)
 assert np.allclose(rad, 1.0, atol=1e-5), (rad.min(), rad.max())
 print("2. furnace OK: all rays exactly 1.0")
 
-# 3. fused megakernel A/B on the cornell glass scene (forced on CPU)
+# 3. lens (CSG) entity: hits land on the lens front surface
 from demos.cornell_box import build_world
-s3 = compile_scene(build_world(glass=True), SpectralConfig(375, 740, 5))
-cfg3 = RayConfig(max_depth=6, max_iters=8, compact_schedule=(), early_exit=False)
-o3 = jnp.asarray(np.concatenate([rng.uniform(-.9,.9,(256,2)), np.full((256,1),-2.5)],1), jnp.float32)
-d3 = rng.normal(size=(256,3)) + np.array([0,0,4.]); d3 /= np.linalg.norm(d3,axis=-1,keepdims=True)
-d3 = jnp.asarray(d3, jnp.float32)
-st3 = init_rays(o3, d3, 5)
-os.environ["SOURCE_TPU_FUSED"] = "0"
-r_ref = trace_rays(s3, cfg3, st3, jax.random.PRNGKey(1))
-os.environ["SOURCE_TPU_FUSED"] = "1"
-r_fus = trace_rays(s3, cfg3, st3, jax.random.PRNGKey(1))
-os.environ.pop("SOURCE_TPU_FUSED")
-assert int(r_ref.segments) == int(r_fus.segments)
-assert np.allclose(np.asarray(r_fus.radiance), np.asarray(r_ref.radiance), rtol=1e-3, atol=1e-4)
-print("3. fused megakernel A/B OK:", int(r_fus.segments), "segments, mean rad",
-      float(np.asarray(r_fus.radiance).mean()))
-
-# 4. lens (CSG) through the packet kernel vs streaming
 from source_tpu.primitive.lens.spherical import BiConvex
-os.environ["SOURCE_TPU_LEAF_BVH"] = "1"
 w4 = World()
 lens = BiConvex(0.1, 0.02, 0.3, 0.3); lens.parent = w4
 lens.transform = translate(0, 0, 0); lens.material = Lambert()
-Sphere(0.2, parent=w4, transform=translate(0.5, 0, 0), material=Lambert())
-s4k = compile_scene(w4, SpectralConfig(400, 700, 4))
-os.environ["SOURCE_TPU_LEAF_BVH"] = "0"
-s4s = compile_scene(w4, SpectralConfig(400, 700, 4))
-os.environ["SOURCE_TPU_LEAF_BVH"] = "1"
-o4 = jnp.asarray(np.concatenate([rng.uniform(-.08,.08,(128,2)), np.full((128,1),-1.)],1), jnp.float32)
+s4 = compile_scene(w4, SpectralConfig(400, 700, 4))
+o4 = jnp.asarray(np.concatenate([rng.uniform(-.03,.03,(128,2)), np.full((128,1),-1.)],1), jnp.float32)
 d4 = jnp.broadcast_to(jnp.asarray([0,0,1.], jnp.float32), (128,3))
-rk = intersect_scene(s4k, o4, d4)
-rs = intersect_scene(s4s, o4, d4)
-os.environ.pop("SOURCE_TPU_LEAF_BVH")
-assert (np.asarray(rk.hit) == np.asarray(rs.hit)).all()
-m = np.asarray(rk.hit)
-assert np.allclose(np.asarray(rk.t)[m], np.asarray(rs.t)[m], rtol=1e-4)
-print("4. lens CSG kernel OK:", m.sum(), "hits match streaming")
+r4 = intersect_scene(s4, o4, d4)
+assert np.asarray(r4.hit).all() and not np.asarray(r4.exiting).any()
+print("3. lens CSG OK:", int(np.asarray(r4.hit).sum()), "entering hits")
 
-# 5. full observer render through the public pipeline API
+# 4. full observer render through the public pipeline API
 from source_tpu.optical.observer import PinholeCamera, RGBPipeline2D
 rgb = RGBPipeline2D(accumulate=False)
 cam = PinholeCamera((32, 32), parent=build_world(glass=True), pipelines=[rgb])
@@ -87,5 +62,5 @@ cam.pixel_samples = 16; cam.spectral_bins = 8; cam.quiet = True
 cam.observe(seed=9)
 fr = rgb.xyz_frame.mean
 assert np.isfinite(fr).all() and fr[..., 1].mean() > 0.3
-print("5. observer render OK: mean Y =", float(fr[..., 1].mean()))
+print("4. observer render OK: mean Y =", float(fr[..., 1].mean()))
 print("ALL VERIFY FLOWS PASSED")

@@ -1,7 +1,7 @@
-"""source_tpu — a TPU-native spectral ray-tracing framework.
+"""source_tpu — a differentiable spectral ray-tracing framework on JAX.
 
 A from-scratch re-design of the capabilities of raysect/source for
-JAX/XLA/Pallas on TPU: the scenegraph compiles to flat SoA device arrays,
+JAX/XLA on an accelerator: the scenegraph compiles to flat SoA device arrays,
 path tracing runs as a wavefront megakernel, statistics fold with
 psum-compatible Welford merges, and the whole forward pipeline is
 differentiable w.r.t. geometry, material and emission parameters.

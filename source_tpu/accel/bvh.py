@@ -1,6 +1,6 @@
 """Host-side BVH build with a native (C++) SAH builder.
 
-TPU-native replacement for the reference's generic spatial kd-tree
+Replacement for the reference's generic spatial kd-tree
 (raysect/core/math/spatial/kdtree3d.pyx:103-393): geometry acceleration is
 built on the host in native code and shipped to the device as flat arrays.
 The layout is *threaded* depth-first order — every node stores its escape
@@ -8,24 +8,24 @@ index — so traversal is stackless (see tracer/meshtrace.py), which is the
 shape a lax.while_loop wavefront kernel needs.
 
 The native builder (csrc/bvh.cpp) is compiled on demand with g++ into a
-shared library cached next to the source; a pure-numpy median-split builder
-with the identical output format is the fallback.
+shared library inside the checkout (``source_tpu.runtime.build_native``); a
+pure-numpy median-split builder with the identical output format is the
+fallback.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-import os
 import subprocess
-import tempfile
 import threading
 
 import numpy as np
 
-__all__ = ["FlatBVH", "build_bvh"]
+from ..runtime import build_native
 
-_CSRC = os.path.join(os.path.dirname(__file__), "..", "..", "csrc", "bvh.cpp")
+__all__ = ["FlatBVH", "build_bvh", "native_builder_available"]
+
 _LIB_LOCK = threading.Lock()
 _LIB = None
 _LIB_FAILED = False
@@ -64,21 +64,11 @@ def _load_native():
     with _LIB_LOCK:
         if _LIB is not None or _LIB_FAILED:
             return _LIB
-        src = os.path.abspath(_CSRC)
-        if not os.path.exists(src):
-            _LIB_FAILED = True
-            return None
-        cache_dir = os.path.join(tempfile.gettempdir(), "source_tpu_native")
-        os.makedirs(cache_dir, exist_ok=True)
-        lib_path = os.path.join(cache_dir, "libbvh.so")
         try:
-            if (not os.path.exists(lib_path)
-                    or os.path.getmtime(lib_path) < os.path.getmtime(src)):
-                subprocess.run(
-                    ["g++", "-O3", "-march=native", "-shared", "-fPIC",
-                     "-std=c++17", src, "-o", lib_path],
-                    check=True, capture_output=True,
-                )
+            lib_path = build_native("bvh")
+            if lib_path is None:
+                _LIB_FAILED = True
+                return None
             lib = ctypes.CDLL(lib_path)
             f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
             i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
@@ -88,10 +78,16 @@ def _load_native():
             ]
             lib.bvh_build.restype = ctypes.c_int
             _LIB = lib
-        except Exception:
+        except (OSError, subprocess.CalledProcessError):
             _LIB_FAILED = True
             _LIB = None
         return _LIB
+
+
+def native_builder_available():
+    """True when the native SAH builder loads; False means ``build_bvh``
+    takes the numpy median-split fallback."""
+    return _load_native() is not None
 
 
 def _build_numpy(tri_lo, tri_hi, max_leaf):

@@ -5,9 +5,9 @@ The reference exposes a pluggable host-side accelerator: ``Accelerator``
 (boundprimitive.pyx:34, primitive + world-space AABB pre-test), ``KDTree``
 (kdtree.pyx:165-180) and ``Unaccelerated`` (unaccelerated.pyx:41-105).
 
-TPU design: the real accelerator here is scene *compilation* — analytic
+Design: the real accelerator here is scene *compilation* — analytic
 leaves are intersected in grouped batches, meshes traverse a threaded BVH
-in a Pallas kernel (SURVEY.md §2.4, PARITY.md). These classes keep the
+or, when small, an all-pairs test (SURVEY.md §2.4, PARITY.md). These classes keep the
 reference's interactive host-query contract: ``build`` compiles (or
 recompiles) the scene tables, ``hit``/``contains`` run the batched device
 query for a single ray/point. ``KDTree`` and ``Unaccelerated`` therefore
@@ -84,8 +84,8 @@ class _CompiledSceneAccelerator(Accelerator):
 class KDTree(_CompiledSceneAccelerator):
     """Default accelerator name kept from the reference (kdtree.pyx:165).
 
-    On TPU the per-query tree walk is replaced by batched leaf
-    intersection + BVH packet traversal over the compiled tables."""
+    Here the per-query tree walk is replaced by batched leaf
+    intersection + BVH traversal over the compiled tables."""
 
 
 class Unaccelerated(_CompiledSceneAccelerator):

@@ -1,6 +1,6 @@
 """Scene compiler: scenegraph -> flat SoA device arrays.
 
-This is the TPU-native replacement for the reference's scenegraph
+This is the vectorised replacement for the reference's scenegraph
 *interpreter* (World.hit walking a kd-tree of Python primitive objects,
 core/scenegraph/world.pyx:125 + core/acceleration/kdtree.pyx). The
 scenegraph is compiled once per (scene version, spectral slice) into:
@@ -45,15 +45,6 @@ from ..primitive import analytic as _a
 from ..primitive.shapes import OP_INTERSECT, OP_LEAF, OP_SUBTRACT, OP_UNION
 
 __all__ = ["CompiledScene", "compile_scene", "SpectralConfig"]
-
-# minimum simple-analytic-leaf count for building the packed leaf-BVH
-# tables. On TPU the packet kernel beats the streaming path at EVERY scene
-# size (the 9-leaf glass Cornell intersection was 78% of its forward pass
-# through streaming), so tables are built for any analytic scene; the
-# tracer still falls back to streaming off-TPU (interpret-mode Pallas) and
-# SOURCE_TPU_LEAF_BVH=0 forces the tables off entirely.
-LEAF_BVH_MIN_LEAVES = 2
-
 
 @dataclasses.dataclass(frozen=True)
 class SpectralConfig:
@@ -101,22 +92,6 @@ class CompiledScene:
     wavelengths: Any = None  # f32[B]
     # triangle meshes (tuple of MeshTables pytrees, one per mesh entity)
     meshes: Any = ()
-    # packed analytic-leaf BVH planes (tracer/pallas_analytic.py) — None
-    # below the leaf-count threshold. The reference analogue is the
-    # primitive kd-tree (core/acceleration/kdtree.pyx:41-180); here it is a
-    # world-space SAH BVH over simple (non-CSG, non-torus) analytic leaves,
-    # packet-traversed by a Pallas kernel so per-ray cost is logarithmic in
-    # leaf count instead of linear.
-    # NOTE: these planes BAKE the leaf AABBs/transforms/params at compile
-    # time — and so do the csg table (child w2l + params baked per row),
-    # ``leaf_fast_static`` and ``entity_material_static``. Replacing
-    # ``leaf_params``/``leaf_w2l``/``entity_material`` on a CompiledScene
-    # (fine for gradient COTANGENTS — the kernel's custom_vjp is
-    # zero-cotangent) leaves the kernels intersecting stale geometry /
-    # dispatching stale materials if a FORWARD render is then run with the
-    # perturbed tables: re-run ``compile_scene`` after any geometry or
-    # material-assignment change (ADVICE r3+r4).
-    leaf_bvh: Any = None
 
     # --- static structure (aux data) ---
     type_slices: Tuple = dataclasses.field(metadata=dict(static=True), default=())
@@ -125,11 +100,6 @@ class CompiledScene:
     simple_leaf_of_entity: Tuple = dataclasses.field(metadata=dict(static=True), default=())
     csg_entities: Tuple = dataclasses.field(metadata=dict(static=True), default=())
     mat_types: Tuple = dataclasses.field(metadata=dict(static=True), default=())
-    # static copy of entity_material (the array is traced under jit; the
-    # fused bounce kernel's codegen needs each entity's material id as
-    # static structure)
-    entity_material_static: Tuple = dataclasses.field(
-        metadata=dict(static=True), default=())
     volume_entities: Tuple = dataclasses.field(metadata=dict(static=True), default=())
     mesh_entities: Tuple = dataclasses.field(metadata=dict(static=True), default=())
     mix_remaps: Tuple = dataclasses.field(metadata=dict(static=True), default=())
@@ -137,21 +107,6 @@ class CompiledScene:
     # subclasses — the objects are static scene structure; their methods are
     # traced into the wavefront dispatch (material.pyx:205-390 extension point)
     custom_materials: Tuple = dataclasses.field(metadata=dict(static=True), default=())
-    # (n_nodes, max_leaf, present_types) for leaf_bvh; () when absent
-    leaf_bvh_meta: Tuple = dataclasses.field(metadata=dict(static=True), default=())
-    # GLOBAL leaf ids covered by leaf_bvh (excluded from the streaming
-    # path); includes the children of kernel-resolved small-CSG entities
-    bvh_leaf_ids: Tuple = dataclasses.field(metadata=dict(static=True), default=())
-    # entity ids whose CSG boolean is resolved INSIDE the packet kernel
-    # (convex-children interval records); the streaming resolve skips them
-    kernel_csg_entities: Tuple = dataclasses.field(
-        metadata=dict(static=True), default=())
-    # per-leaf world-space fast-record kind for the fused bounce kernel
-    # (0 = general local-frame, 1 = rigid/uniform-scale sphere -> world
-    # sphere, 2 = axis-permutation box -> world AABB); detected from the
-    # CONCRETE transforms at compile time, so it is static structure
-    leaf_fast_static: Tuple = dataclasses.field(
-        metadata=dict(static=True), default=())
     has_roughen: bool = dataclasses.field(metadata=dict(static=True), default=False)
     has_importance: bool = dataclasses.field(metadata=dict(static=True), default=False)
     # bin COUNT stays static (array shapes); the wavelength range is traced
@@ -281,87 +236,6 @@ def compile_scene(world: World, spectral: SpectralConfig, dtype=jnp.float32) -> 
             # static jit field, and fresh closures hash by identity, which
             # forced a full recompile on every observe() pass
             csg_entities.append((e, leaf_ids, local_prog))
-
-    # --- analytic leaf BVH (reference: core/acceleration/kdtree.pyx) ---------------
-    # Simple (non-CSG) leaves of the kernel-supported types — torus
-    # included (Newton-polished quartic leaf, VERDICT r4 next #5) — go into
-    # a world-space SAH BVH that the wavefront tracer packet-traverses in
-    # one Pallas kernel (tracer/pallas_analytic.py); CSG children (need ALL
-    # crossings as one convex interval) stay restricted to CSG_CHILD_TYPES.
-    import os as _os
-
-    from ..tracer.pallas_analytic import (
-        BVH_TYPES, CSG_CHILD_TYPES, MAX_CSG_CHILD, pack_leaf_bvh_host,
-    )
-
-    _force = _os.environ.get("SOURCE_TPU_LEAF_BVH", "")
-    if _force == "1":
-        _bvh_min = 2
-    elif _force == "0":
-        _bvh_min = 1 << 30
-    else:
-        _bvh_min = LEAF_BVH_MIN_LEAVES
-    csg_leaf_set = {g for _, leaf_ids, _ in csg_entities for g in leaf_ids}
-    bvh_rows = [
-        i for i, r in enumerate(leaf_records)
-        if r[0] in BVH_TYPES and i not in csg_leaf_set
-    ]
-    # small-CSG entities (<= MAX_CSG_CHILD convex analytic children — every
-    # lens primitive qualifies) become single BVH items evaluated inline by
-    # the packet kernel from the children's ray intervals, so a lens stack
-    # traces in O(log entities) like the reference's kd-tree
-    # (core/acceleration/kdtree.pyx accelerates EVERY primitive type)
-    csg_items = []
-    kernel_csg = []
-    for e, leaf_ids_t, program in csg_entities:
-        if (len(leaf_ids_t) <= MAX_CSG_CHILD
-                and all(leaf_records[g][0] in CSG_CHILD_TYPES
-                        for g in leaf_ids_t)):
-            children = [
-                (g, leaf_records[g][0], l2w[g], w2l[g], params[g])
-                for g in leaf_ids_t
-            ]
-            csg_items.append((e, program, children))
-            kernel_csg.append(e)
-    covered_children = sorted(
-        g for (_e, _p, ch) in csg_items for (g, *_r) in ch)
-    leaf_bvh = None
-    leaf_bvh_meta = ()
-    if len(bvh_rows) + len(csg_items) >= _bvh_min:
-        tables, meta = pack_leaf_bvh_host(
-            [leaf_records[i][0] for i in bvh_rows],
-            l2w[bvh_rows], w2l[bvh_rows], params[bvh_rows], bvh_rows,
-            leaf_entities=[leaf_entity[i] for i in bvh_rows],
-            csg_items=csg_items,
-        )
-        if tables is not None:
-            leaf_bvh = {k: jnp.asarray(v) for k, v in tables.items()}
-            leaf_bvh_meta = meta
-    if leaf_bvh is None:
-        bvh_rows = []
-        kernel_csg = []
-        covered_children = []
-    bvh_rows = list(bvh_rows) + covered_children
-
-    # world-space fast-record detection for the fused bounce kernel (same
-    # criteria as the packet kernel's KT_SPHERE_W / KT_BOX_W records)
-    leaf_fast = []
-    for i, r in enumerate(leaf_records):
-        kind = 0
-        R3 = l2w[i][:3, :3]
-        # stricter than the packet kernel's rigid-sphere criterion: the
-        # fused kernel demands EXACT fp parity with the streaming path, so
-        # only pure TRANSLATIONS — where the local-frame test (o-c exact,
-        # unchanged radius) and the world-sphere test follow identical
-        # float routes — take the world-sphere record; rotations and
-        # scales keep general records
-        if r[0] == _a.TYPE_SPHERE and np.abs(R3 - np.eye(3)).max() <= 1e-12:
-            kind = 1
-        elif r[0] == _a.TYPE_BOX:
-            nz = np.abs(R3) > 1e-9 * max(1.0, np.abs(R3).max())
-            if (nz.sum(axis=0) == 1).all() and (nz.sum(axis=1) == 1).all():
-                kind = 2
-        leaf_fast.append(kind)
 
     # --- materials -----------------------------------------------------------------
     materials = []
@@ -512,18 +386,12 @@ def compile_scene(world: World, spectral: SpectralConfig, dtype=jnp.float32) -> 
             dtype,
         ),
         meshes=tuple(mesh_tables),
-        leaf_bvh=leaf_bvh,
-        leaf_bvh_meta=leaf_bvh_meta,
-        bvh_leaf_ids=tuple(bvh_rows),
-        kernel_csg_entities=tuple(kernel_csg),
-        leaf_fast_static=tuple(leaf_fast),
         type_slices=tuple(type_slices),
         n_leaves=n_leaves,
         n_entities=n_entities,
         simple_leaf_of_entity=tuple(simple_leaf_of_entity),
         csg_entities=tuple(csg_entities),
         mat_types=mat_types,
-        entity_material_static=tuple(entity_material),
         volume_entities=tuple(volume_entities),
         mesh_entities=tuple(mesh_entities),
         mix_remaps=tuple(mix_remaps),

@@ -1,6 +1,6 @@
 """4x4 affine transform matrix, host-side.
 
-TPU-native equivalent of raysect/core/math/{_mat4,affinematrix}.pyx. Backed by
+Vectorised equivalent of raysect/core/math/{_mat4,affinematrix}.pyx. Backed by
 nested python floats for fast host use; exposes ``.to_array()`` for device
 upload. Device batched transforms live in :mod:`source_tpu.core.math.batch`.
 """

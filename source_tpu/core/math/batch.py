@@ -1,6 +1,6 @@
 """Device-side batched vector/transform math.
 
-This module is the TPU-native replacement for the reference's per-object
+This module is the vectorised replacement for the reference's per-object
 Cython vector math (raysect/core/math/{vector,point,normal,affinematrix}.pyx):
 every operation acts on arrays of shape ``[..., 3]`` (or ``[..., 4, 4]`` for
 transforms) and is fully traceable under ``jax.jit`` / ``vmap`` / ``grad``.
@@ -54,42 +54,39 @@ def safe_pow(base, exp):
 
 SELECT_ROWS_MAX = 64
 # above this row count the one-hot [N, L] operand outweighs the gather cost
-SELECT_ROWS_MXU_MAX = 4096
+SELECT_ROWS_ONEHOT_MAX = 4096
 # cap on the one-hot operand's bytes (N * L * 4); above it the gather wins
-# on HBM pressure even when L alone is in the MXU-profitable band
+# on memory traffic even when L alone is in the contraction's band
 SELECT_ROWS_ONEHOT_MAX_BYTES = 768 * 1024 * 1024
 
 
 def select_rows(table, idx, limit=SELECT_ROWS_MAX):
     """``table[idx]`` for a small first axis, as a one-hot masked select.
 
-    TPU dynamic row gathers serialize badly (a [262k] gather of 4x4
-    transforms measures ~2.7x slower than L static where-passes on v5e);
-    scene tables (leaf transforms, material spectra/params) have tiny
-    leading axes, so the hot paths use this instead. Index values outside
+    Scene tables (leaf transforms, material spectra/params) have tiny
+    leading axes, so the hot paths use L static where-passes instead of a
+    dynamic row gather (the crossover is not measured on the H100 yet).
+    Index values outside
     [0, L) produce zero rows. Falls back to a plain gather above ``limit``
     rows. Differentiable w.r.t. ``table`` (masked-sum backward).
     """
     L = table.shape[0]
-    if L > SELECT_ROWS_MXU_MAX:
+    if L > SELECT_ROWS_ONEHOT_MAX:
         return table[idx]
     if L > limit:
-        # the [N, L] one-hot operand must also stay within a sane HBM
-        # footprint: the 10x-vs-gather speedup was measured at L ~ 1000 /
-        # N ~ 131k (~0.5 GB operand); near the L cap with flagship-sized
-        # batches the operand alone would spike ~2 GB per call, so large
-        # N*L products fall back to the gather (ADVICE r3)
+        # the [N, L] one-hot operand must also stay within a sane memory
+        # footprint: near the L cap with flagship-sized batches the operand
+        # alone would spike ~2 GB per call, so large N*L products fall back
+        # to the gather
         n_idx = 1
         for s in idx.shape:
             n_idx *= int(s)
         if n_idx * L * 4 > SELECT_ROWS_ONEHOT_MAX_BYTES:
             return table[idx]
-        # mid-size tables: one-hot CONTRACTION on the MXU. Each output row
-        # is an exact copy (exactly one nonzero per one-hot row, f32
-        # HIGHEST precision), the backward is the transposed matmul
-        # (onehot^T @ g, also MXU), and a [N, L] x [L, F] contraction at
-        # L ~ 1000 measures ~10x faster than the serialized dynamic row
-        # gather this replaces (v5e, 131k x 1001 leaf table).
+        # mid-size tables: one-hot CONTRACTION. Each output row is an
+        # exact copy (exactly one nonzero per one-hot row, f32 HIGHEST
+        # precision, never TF32) and the backward is the transposed
+        # matmul (onehot^T @ g).
         import jax as _jax
 
         flat = table.reshape(L, -1)
@@ -145,8 +142,8 @@ def orthogonal(v):
     Branchless: choose the smallest-magnitude component's axis.
     """
     ax = jnp.abs(v)
-    # one-hot of argmin(|v|) from comparisons (an eye[argmin] row gather
-    # serializes on TPU); cumsum tie-breaks toward the first axis
+    # one-hot of argmin(|v|) from comparisons instead of an eye[argmin]
+    # row gather; cumsum tie-breaks toward the first axis
     is_min = ax <= jnp.min(ax, axis=-1, keepdims=True)
     axis = (is_min & (jnp.cumsum(is_min, axis=-1) == 1)).astype(v.dtype)
     return normalise(jnp.cross(v, axis))
@@ -155,9 +152,10 @@ def orthogonal(v):
 def _mat3_apply(m3, v):
     """[..., 3, 3] x [..., 3] -> [..., 3] as explicit multiply-adds.
 
-    Written without einsum/dot so XLA keeps it on the VPU in full f32 —
-    the TPU MXU's default bf16 precision is not acceptable for ray
-    geometry (errors ~1e-2 would break epsilon offsets).
+    Written without einsum/dot so XLA keeps it elementwise in full f32 —
+    a matrix unit's reduced default precision (TF32 on the GPU, ~1e-3
+    relative) is not acceptable for ray geometry (it would break epsilon
+    offsets).
     """
     x = v[..., 0:1]
     y = v[..., 1:2]

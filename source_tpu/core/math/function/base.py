@@ -1,6 +1,6 @@
 """Function framework: composable scalar fields with operator algebra.
 
-TPU-native counterpart of the reference's Function1D/2D/3D class forest
+Counterpart of the reference's Function1D/2D/3D class forest
 (raysect/core/math/function/float/function{1,2,3}d/base.pyx:39-855 — Add/
 Sub/Mul/Div/Modulo/Pow/Abs/comparison nodes, function⊗function and
 function⊗scalar variants; autowrap.pyx:38-90 coercion; Arg/Constant and the

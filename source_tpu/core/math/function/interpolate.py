@@ -1,6 +1,6 @@
 """Array interpolators: 1D/2D/3D gridded data -> smooth scalar fields.
 
-TPU-native counterparts of the reference's array interpolators
+Counterparts of the reference's array interpolators
 (raysect/core/math/function/float/function1d/interpolate.pyx:45
 ``Interpolator1DArray``, function2d/interpolate/interpolator2darray.pyx:101,
 function3d/interpolate/interpolator3darray.pyx:99): linear or cubic

@@ -6,7 +6,7 @@ Counterparts of the reference's mesh interpolators
 kd-tree point location; discrete2dmesh.pyx:39 ``Discrete2DMesh``;
 function3d/.../discrete3dmesh.pyx:39 ``Discrete3DMesh`` tetrahedral).
 
-TPU-native design: instead of a per-query kd-tree walk, point location is a
+Design: instead of a per-query kd-tree walk, point location is a
 host-built uniform-grid bin structure — each query hashes to a grid cell and
 tests that cell's fixed-size candidate list (barycentric containment), a
 dense gather+mask computation that vmaps. Grid resolution ~sqrt(T) keeps the

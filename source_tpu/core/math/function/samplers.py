@@ -1,6 +1,6 @@
 """Function1D sampling utilities.
 
-TPU-native counterpart of the reference's function samplers
+Counterpart of the reference's function samplers
 (raysect/core/math/function/float/function1d/samplers.pyx:41 ``sample1d``,
 :81 ``sample1d_points``). The reference loops ``func.evaluate`` per point in
 Cython; here Functions are traced array programs, so one vectorised call

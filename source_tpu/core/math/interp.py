@@ -1,6 +1,6 @@
 """Vectorized piecewise-linear sampled-function utilities.
 
-TPU-native replacement for the nogil numeric helpers in
+Vectorised replacement for the nogil numeric helpers in
 raysect/core/math/cython/utility.pyx (``find_index``, ``interpolate``,
 ``integrate``, ``average`` — utility.pxd:36-75). Semantics match the
 reference: nearest-neighbour (constant) extrapolation outside the sample

@@ -1,6 +1,6 @@
 """Vectorized polynomial root solvers (quadratic/cubic/quartic).
 
-TPU-native replacement for raysect/core/math/cython/utility.pyx
+Vectorised replacement for raysect/core/math/cython/utility.pyx
 ``solve_quadratic/solve_cubic/solve_quartic`` (utility.pxd:96-109). All
 functions are branchless and batched: they return fixed-size root arrays plus
 validity masks, so they trace cleanly under ``jit``/``vmap`` and are used by
@@ -41,9 +41,8 @@ def _cbrt(x, eps=1e-24):
 
 def _quad_components(a, b, c, eps=1e-30):
     """solve_quadratic without the stacked [..., 2] axis: returns
-    ((lo, v_lo), (hi, v_hi)). The component form is what the Pallas
-    kernels consume (a stacked minor axis would move lanes off the vector
-    lane dimension); ``solve_quadratic`` stacks these same values, so the
+    ((lo, v_lo), (hi, v_hi)). ``solve_quadratic`` stacks these same
+    values, so the
     streaming and kernel paths share one fp route."""
     d = b * b - 4.0 * a * c
     has_roots = d >= 0.0
@@ -54,7 +53,6 @@ def _quad_components(a, b, c, eps=1e-30):
     r0 = jnp.where(lin, _safe_div(-c, b, eps), _safe_div(q, a, eps))
     r1 = _safe_div(c, q, eps)
     v1 = has_roots & ~lin & (jnp.abs(q) >= eps)
-    # boolean algebra, not select: Mosaic rejects vector selects on i1
     v0 = (lin & (jnp.abs(b) >= eps)) | (~lin & has_roots)
     r1_eff = jnp.where(v1, r1, r0)
     lo = jnp.minimum(r0, r1_eff)
@@ -129,10 +127,8 @@ def solve_cubic(a, b, c, d):
 def _acos_poly(x):
     """Polynomial arccos (Abramowitz & Stegun 4.4.45, |err| < 6.7e-5).
 
-    Mosaic (TPU Pallas) has no acos lowering, and the resolvent-cubic
-    root only needs ~1e-4 accuracy — the quartic's Newton polish restores
-    full f32 precision downstream. Used by BOTH the streaming and kernel
-    torus paths (shared fp route, so their hits agree bit-for-bit)."""
+    The resolvent-cubic root only needs ~1e-4 accuracy — the quartic's
+    Newton polish restores full f32 precision downstream."""
     ax = jnp.abs(x)
     p = 1.5707288 + ax * (-0.2121144 + ax * (0.0742610 - 0.0187293 * ax))
     a = _safe_sqrt(1.0 - ax, ok=(1.0 - ax) > 0.0) * p
@@ -160,11 +156,8 @@ def _cubic_largest(b, c, d):
 
 def solve_quartic_components(a, b, c, d, e, newton_iters=2):
     """``solve_quartic`` without the stacked [..., 4] axis: four
-    Newton-polished (root, valid) pairs, unsorted. The Pallas analytic
-    kernels consume this form directly (a stacked minor axis would move
-    ray lanes off the vector lane dimension); ``solve_quartic`` stacks
-    these same values, so the streaming and kernel torus paths are
-    bit-identical (primitive/torus.pyx quartic semantics)."""
+    Newton-polished (root, valid) pairs, unsorted (primitive/torus.pyx
+    quartic semantics); ``solve_quartic`` stacks these same values."""
     # degenerate-lane guard: dead/masked rays reach here with a == 0
     # (|d|^4 for the torus quartic); 1/0 = inf would poison reverse-mode
     # through the masked lanes (NaN = 0 * inf), so sanitize a and mark
@@ -187,11 +180,12 @@ def solve_quartic_components(a, b, c, d, e, newton_iters=2):
     # resolvent cubic: z^3 - p z^2 - 4 r z + (4 p r - q^2) = 0; largest real z
     z = _cubic_largest(-p, -4.0 * r, 4.0 * p * r - q * q)
 
-    # factor into two quadratics y^2 -/+ s y + (z/2 -/+ q/(2s))
+    # factor into two quadratics y^2 -/+ s y + (z/2 +/- q/(2s)):
+    # (y^2 + z/2)^2 - (s y - q/(2s))^2 with s^2 = z - p
     s = _safe_sqrt(z - p)
     deg = s <= 1e-12
-    t0 = z / 2.0 - _safe_div(q, 2.0 * s)
-    t1 = z / 2.0 + _safe_div(q, 2.0 * s)
+    t0 = z / 2.0 + _safe_div(q, 2.0 * s)
+    t1 = z / 2.0 - _safe_div(q, 2.0 * s)
     # s == 0 degenerate: y^2 = (-p +/- sqrt(p^2-4r))/2
     dd = _safe_sqrt(p * p - 4.0 * r)
     t0 = jnp.where(deg, (z + dd) / 2.0, t0)
@@ -226,7 +220,7 @@ def solve_quartic(a, b, c, d, e, newton_iters=2):
     for f32 robustness (the torus intersection is sensitive —
     primitive/torus.pyx quartic path). Returns (roots[..., 4], valid[..., 4])
     sorted ascending with invalid lanes +inf. Thin stacked view of
-    ``solve_quartic_components`` (one shared fp route with the kernels).
+    ``solve_quartic_components``.
     """
     pairs = solve_quartic_components(a, b, c, d, e, newton_iters)
     roots = jnp.stack([jnp.where(v, x, _INF) for x, v in pairs], axis=-1)

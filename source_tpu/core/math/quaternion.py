@@ -1,6 +1,6 @@
 """Quaternion rotations, host-side.
 
-TPU-native re-design of raysect/core/math/quaternion.pyx:44. Component order
+Vectorised re-design of raysect/core/math/quaternion.pyx:44. Component order
 matches the reference: ``Quaternion(x, y, z, s)`` with scalar part last.
 """
 

@@ -1,6 +1,6 @@
 """Counter-based random sampling for the wavefront tracer.
 
-TPU-native replacement for the reference's global MT19937-64 RNG
+Vectorised replacement for the reference's global MT19937-64 RNG
 (raysect/core/math/random.pyx:31-308) and its per-worker re-seeding
 (core/workflow.py:305). Instead of a mutable global stream, every ray derives
 a deterministic, decorrelated `jax.random` key by folding in

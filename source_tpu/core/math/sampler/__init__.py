@@ -1,6 +1,6 @@
 """Sampler classes: solid-angle, surface and targeted samplers.
 
-TPU-native counterparts of raysect/core/math/sampler/{solidangle,surface3d,
+Counterparts of raysect/core/math/sampler/{solidangle,surface3d,
 targeted}.pyx. The reference samplers are stateful objects drawing one
 sample per call from the global RNG; here each sampler is a thin class over
 the batched primitives in core.math.random — ``sample(key, n)`` returns n

@@ -6,7 +6,7 @@ kdtree2d.pyx:101 ``KDTree2DCore``): a host-side kd-tree built from
 (id, AABB) items, answering point containment-candidate queries and
 serialisable to disk. The reference uses these for mesh acceleration and
 mesh interpolators; here the *device* hot paths use the threaded BVH
-(accel/bvh.py, Pallas packet traversal) and uniform-grid candidate bins
+(accel/bvh.py, tracer/meshtrace.py) and uniform-grid candidate bins
 (function/mesh_interp.py), so these trees serve the host-side/utility
 role only — built with the same PBRT-style auto depth
 ⌈8 + 1.3·ln N⌉ (kdtree3d.pyx:126-145).

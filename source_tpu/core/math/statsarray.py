@@ -1,6 +1,6 @@
 """Incremental statistics (Welford mean/variance) arrays.
 
-TPU-native replacement for raysect/core/math/statsarray.pyx
+Vectorised replacement for raysect/core/math/statsarray.pyx
 (StatsBin:39, StatsArray1D:132, StatsArray2D:315, StatsArray3D:513).
 
 Design split:
@@ -147,7 +147,7 @@ class _StatsBase:
         self.samples[idx] = n
         self._refresh_variance()
 
-    # bulk (vectorized) merge used by the TPU pipelines
+    # bulk (vectorized) merge used by the device pipelines
     def merge_arrays(self, mean_b, m2_b, n_b):
         """Merge whole (mean, m2, n) arrays — the device->host fold."""
         mean_b = np.asarray(mean_b, dtype=np.float64)

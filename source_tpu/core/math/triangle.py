@@ -1,13 +1,13 @@
 """Batched triangle / tetrahedra / polygon predicates.
 
-TPU-native counterparts of the reference's nogil scalar geometry utilities
+Counterparts of the reference's nogil scalar geometry utilities
 (raysect/core/math/cython/triangle.pyx:35 ``inside_triangle``, :104
 ``barycentric_coords``, :144/:159 barycentric predicates/interpolation;
 cython/tetrahedra.pyx:35 ``inside_tetrahedra``, :129
 ``barycentric_coords_tetra``; cython/utility.pyx:752 ``winding2d``, :786
 ``point_inside_polygon``). The reference evaluates one point at a time in
 C; these accept arbitrary leading batch dimensions and trace to fused XLA,
-so the same predicates run wide on the VPU inside jitted kernels.
+so the same predicates run wide inside jitted kernels.
 
 All functions work with either numpy or jax arrays (jnp ops on numpy input
 return jax arrays; wrap with ``np.asarray`` if host values are needed).

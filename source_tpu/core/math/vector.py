@@ -1,6 +1,6 @@
 """Host-side 3D/2D vector, point and normal types.
 
-TPU-native re-design of the reference's Cython math substrate
+Vectorised re-design of the reference's Cython math substrate
 (raysect/core/math/{_vec3,vector,point,normal}.pyx). These classes are only
 used on the *host* during scene construction — all device-side math operates
 on flat ``jnp`` arrays (see :mod:`source_tpu.core.math.batch`). They are

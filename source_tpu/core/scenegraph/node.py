@@ -1,8 +1,8 @@
 """Host-side scenegraph.
 
-TPU-native re-design of raysect/core/scenegraph/{_nodebase,node,primitive,
+Vectorised re-design of raysect/core/scenegraph/{_nodebase,node,primitive,
 observer,world,signal}.pyx. The scenegraph is a pure-Python *scene
-description* — it never appears on the TPU. Instead, ``World`` hands the tree
+description* — it never appears on the device. Instead, ``World`` hands the tree
 to the scene compiler (source_tpu/compiler/scene.py) which flattens it into
 SoA device arrays; the lazy ``GEOMETRY``/``MATERIAL`` change-signal machinery
 (signal.pyx:49-67, world.pyx:220-238) is kept and used to invalidate the
@@ -333,7 +333,7 @@ class World(NodeBase):
     """Scenegraph root (core/scenegraph/world.pyx:40).
 
     Tracks primitives/observers and invalidates the compiled scene on
-    GEOMETRY/MATERIAL signals — the TPU analogue of the reference's lazy
+    GEOMETRY/MATERIAL signals — the analogue of the reference's lazy
     kd-tree rebuild (world.pyx:220-238).
     """
 
@@ -383,7 +383,7 @@ class World(NodeBase):
 
     def _build_query_scene(self):
         """Lazily compile the scene for host-side hit/contains queries — the
-        TPU analogue of the reference's lazy accelerator build
+        analogue of the reference's lazy accelerator build
         (world.pyx:170-194). One spectral bin: geometry queries don't touch
         the spectral tables."""
         if self._query_scene is None:

@@ -1,6 +1,6 @@
 """CIE colour pipeline.
 
-TPU-native re-design of raysect/optical/colour.pyx. Instead of carrying the
+Vectorised re-design of raysect/optical/colour.pyx. Instead of carrying the
 5 nm CIE lookup tables, the CIE 1931 2-degree colour matching functions are
 evaluated with the multi-lobe piecewise-Gaussian analytic fit of Wyman, Sloan
 & Shirley (JCGT 2013) — accurate to well under 1 % of peak, smooth, and
@@ -10,11 +10,12 @@ applied (tables divided by 106.8566 so the Y curve integrates to 1 —
 colour.pyx:39-81), so radiance -> XYZ magnitudes agree.
 
 Batched usage: ``spectra_to_ciexyz(samples[N, B], resampled[B, 3])`` is a
-single matmul-shaped contraction that XLA maps onto the MXU.
+single matmul-shaped contraction.
 """
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -110,8 +111,10 @@ def resample_ciexyz(min_wavelength, max_wavelength, bins):
 
 def spectra_to_ciexyz(samples, resampled_xyz, delta_wavelength):
     """Batched spectrum -> XYZ: samples [..., B] x resampled [B, 3] -> [..., 3]
-    (colour.pyx:158 semantics; one MXU contraction)."""
-    return jnp.matmul(samples, resampled_xyz) * delta_wavelength
+    (colour.pyx:158 semantics; one contraction, pinned to f32 so the GPU
+    does not round the radiometry to TF32)."""
+    return jnp.matmul(samples, resampled_xyz,
+                      precision=jax.lax.Precision.HIGHEST) * delta_wavelength
 
 
 def spectrum_to_ciexyz(spectrum: Spectrum, resampled_xyz=None):
@@ -178,7 +181,7 @@ def ciexyz_to_srgb(x, y=None, z=None):
     batched [..., 3] array or three scalars (reference signature)."""
     scalar = y is not None
     xyz = jnp.stack([jnp.asarray(x), jnp.asarray(y), jnp.asarray(z)], axis=-1) if scalar else jnp.asarray(x)
-    rgb = jnp.einsum("ij,...j->...i", _XYZ_TO_SRGB, xyz)
+    rgb = jnp.einsum("ij,...j->...i", _XYZ_TO_SRGB, xyz, precision="highest")
     rgb = srgb_transfer_function(jnp.clip(rgb, 0.0, None))
     rgb = jnp.clip(rgb, 0.0, 1.0)
     if scalar:
@@ -191,7 +194,7 @@ def srgb_to_ciexyz(r, g=None, b=None):
     scalar = g is not None
     rgb = jnp.stack([jnp.asarray(r), jnp.asarray(g), jnp.asarray(b)], axis=-1) if scalar else jnp.asarray(r)
     lin = srgb_transfer_function_inverse(rgb)
-    xyz = jnp.einsum("ij,...j->...i", _SRGB_TO_XYZ, lin)
+    xyz = jnp.einsum("ij,...j->...i", _SRGB_TO_XYZ, lin, precision="highest")
     if scalar:
         return float(xyz[..., 0]), float(xyz[..., 1]), float(xyz[..., 2])
     return xyz

@@ -1,6 +1,6 @@
 """Schott glass catalog.
 
-TPU-native counterpart of raysect/optical/library/glass/schott.py:51-94.
+Counterpart of raysect/optical/library/glass/schott.py:51-94.
 ``schott(name)`` returns a Dielectric built from the glass's Sellmeier
 dispersion coefficients and measured internal transmission curve.
 

@@ -1,6 +1,6 @@
 """Metal materials library.
 
-TPU-native counterpart of raysect/optical/library/metal/{metal,roughmetal}.py
+Counterpart of raysect/optical/library/metal/{metal,roughmetal}.py
 (18 measured metals, metal.py:57-162). Complex refractive indices n + ik
 are the full measured tables from the public-domain (CC0) optical-constant
 compilations distributed by refractiveindex.info (Rakic 1998,

@@ -1,6 +1,6 @@
 """Standard spectra: BlackBody and named colours.
 
-TPU-native counterparts of raysect/optical/library/spectra/{blackbody.pyx,
+Counterparts of raysect/optical/library/spectra/{blackbody.pyx,
 colours.py}. BlackBody evaluates the Planck law directly; named colours are
 narrow normalised top-hats at the reference's centre wavelengths
 (colours.py:48-57).

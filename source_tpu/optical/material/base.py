@@ -1,6 +1,6 @@
 """Optical material base classes and the device compile contract.
 
-TPU-native re-design of raysect/optical/material/material.pyx. The
+Vectorised re-design of raysect/optical/material/material.pyx. The
 reference dispatches ``evaluate_surface``/``evaluate_volume`` virtually per
 intersection (material.pyx:65-115); here every material *compiles* into rows
 of flat device tables and the wavefront kernel evaluates all material types

@@ -1,6 +1,6 @@
 """Conducting materials (mirrors).
 
-TPU-native counterparts of raysect/optical/material/conductor.pyx
+Counterparts of raysect/optical/material/conductor.pyx
 (Conductor:39, RoughConductor:159). Spectra slot 0 = n(lambda), slot 1 =
 k(lambda); the wavefront kernel evaluates the conducting Fresnel equations
 per bin and, for the rough variant, Cook-Torrance GGX + Smith shadowing.

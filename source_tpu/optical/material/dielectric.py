@@ -1,6 +1,6 @@
 """Dielectric materials and the Sellmeier dispersion model.
 
-TPU-native counterparts of raysect/optical/material/dielectric.pyx
+Counterparts of raysect/optical/material/dielectric.pyx
 (Sellmeier:40, Dielectric:120). The wavefront kernel consumes:
   scalars[0] = interior index averaged over the spectral slice
                (dielectric.pyx:176 — dispersion therefore requires

@@ -1,6 +1,6 @@
 """Surface and volume emitters.
 
-TPU-native counterparts of raysect/optical/material/emitter/{uniform,unity,
+Counterparts of raysect/optical/material/emitter/{uniform,unity,
 anisotropic,checkerboard,homogeneous,inhomogeneous}.pyx. Surface emitters
 terminate the path and add ``throughput x emission``; volume emitters
 contribute along containing segments in the wavefront volume stage.

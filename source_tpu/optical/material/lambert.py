@@ -1,6 +1,6 @@
 """Lambertian diffuse surface.
 
-TPU-native counterpart of raysect/optical/material/lambert.pyx:40. Spectra
+Counterpart of raysect/optical/material/lambert.pyx:40. Spectra
 slot 0 carries the reflectivity curve; the wavefront kernel implements the
 cosine-hemisphere sampling + one-sample MIS estimator of the reference's
 ContinuousBSDF base (material.pyx:327-352, lambert.pyx:71-106).

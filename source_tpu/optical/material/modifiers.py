@@ -1,6 +1,6 @@
 """Material modifiers: Roughen, Blend, Add, VolumeTransform.
 
-TPU-native counterparts of raysect/optical/material/modifiers/
+Counterparts of raysect/optical/material/modifiers/
 (roughen.pyx:46-120, blend.pyx:37, add.pyx:36, transform.pyx:36). The
 reference wraps materials with delegating evaluate_surface overrides; in
 the flat-table dispatch world:

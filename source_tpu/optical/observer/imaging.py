@@ -1,6 +1,6 @@
 """Imaging observers (cameras).
 
-TPU-native counterparts of raysect/optical/observer/imaging/{pinhole,
+Counterparts of raysect/optical/observer/imaging/{pinhole,
 orthographic,ccd,vector,opencv,targeted_ccd}.pyx. Each camera supplies a
 batched device ray generator; everything else (spectral slicing, tiling,
 tracing, statistics) lives in Observer2D.

@@ -1,7 +1,7 @@
 """Non-imaging observers: Pixel, SightLine, FibreOptic, TargetedPixel,
 MeshPixel, MeshCamera.
 
-TPU-native counterparts of raysect/optical/observer/nonimaging/{pixel,
+Counterparts of raysect/optical/observer/nonimaging/{pixel,
 sightline,fibreoptic,targeted_pixel,mesh_pixel,mesh_camera}.pyx. Each
 observer is a batched device ray generator over the shared Observer0D/1D
 machinery; etendue factors are carried as per-pixel sensitivities exactly

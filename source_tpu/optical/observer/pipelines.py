@@ -1,6 +1,6 @@
 """Observer pipelines.
 
-TPU-native re-design of raysect/optical/observer/pipeline/{rgb,bayer,
+Vectorised re-design of raysect/optical/observer/pipeline/{rgb,bayer,
 mono/power,mono/radiance,spectral/power,spectral/radiance}.pyx. Each
 pipeline supplies a *device-side* projection from per-sample spectra to
 channel values (a fused jnp contraction, batched over a whole pixel tile)
@@ -141,8 +141,8 @@ class RGBPipeline2D(Pipeline2D, _FrameMixin):
         return {"cie": jnp.asarray(cie, jnp.float32), "delta": jnp.float32(delta)}
 
     def project(self, spectra, consts, sensitivity, px=None, py=None):
-        # [T,S,B] x [B,3] MXU contraction; highest precision (bf16 default
-        # would corrupt radiometry)
+        # [T,S,B] x [B,3] contraction; highest precision (a TF32 default
+        # on the GPU would corrupt radiometry)
         xyz = jnp.einsum(
             "tsb,bc->tsc", spectra, consts["cie"].astype(spectra.dtype),
             precision="highest",
@@ -230,7 +230,8 @@ class BayerPipeline2D(Pipeline2D, _FrameMixin):
 
     def project(self, spectra, consts, sensitivity, px=None, py=None):
         filt = consts["filt"].astype(spectra.dtype)
-        vals = jnp.einsum("tsb,cb->tsc", spectra, filt) * consts["delta"]  # [T,S,3]
+        vals = jnp.einsum("tsb,cb->tsc", spectra, filt,
+                          precision="highest") * consts["delta"]  # [T,S,3]
         if px is None:
             mono = vals[..., 1:2]
         else:

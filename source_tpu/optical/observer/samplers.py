@@ -1,6 +1,6 @@
 """Frame samplers: full-frame and adaptive task generation.
 
-TPU-native counterparts of raysect/optical/observer/{sampler1d,sampler2d}.pyx.
+Counterparts of raysect/optical/observer/{sampler1d,sampler2d}.pyx.
 Task generation is a host-side, vectorized-numpy operation between render
 passes (SURVEY.md §2.12: "static per-device tiling + periodic host-side
 re-tiling from the error frame between observe() passes").

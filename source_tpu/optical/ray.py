@@ -5,7 +5,7 @@ construct with an origin/direction and a spectral configuration, then
 ``trace(world)`` for one path sample or ``sample(world, count)`` for a
 mean spectrum. The reference traces recursively per ray; here ``sample``
 maps to ONE wavefront batch of ``count`` identical camera rays (the
-TPU-native expression of ray.pyx:459-504's averaging loop), so a million
+vectorised expression of ray.pyx:459-504's averaging loop), so a million
 samples cost one kernel launch. ``spawn_daughter`` (ray.pyx:506) has no
 host-side counterpart — daughter rays are masked continuation lanes
 inside the wavefront kernel (tracer/wavefront.py).

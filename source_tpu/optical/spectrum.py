@@ -1,6 +1,6 @@
 """Spectra and spectral functions.
 
-TPU-native re-design of raysect/optical/{spectrum,spectralfunction}.pyx.
+Vectorised re-design of raysect/optical/{spectrum,spectralfunction}.pyx.
 
 ``Spectrum`` keeps the reference's binning convention exactly: ``bins``
 equal-width bins over [min_wavelength, max_wavelength) with bin-centre

@@ -1,15 +1,18 @@
-"""Multi-host orchestration over DCN + per-host data feeding.
+"""Multi-process orchestration + per-host data feeding.
 
 The reference names clusters as the intended RenderEngine extension
 (core/workflow.py:42-48 "single cores, multi-cores (SMP) and clusters");
-its actual backend is single-host multiprocessing. The TPU-native
-equivalent (SURVEY.md §5.8): ``jax.distributed`` initialises the process
-group over DCN, a GLOBAL mesh spans every chip of every host, scene tables
-replicate, pixel tiles shard over the mesh's ray axis, and XLA reduces
-frame statistics / scene-parameter gradients over ICI-within-slice +
-DCN-across-slices automatically from the sharding contract.
+its actual backend is single-host multiprocessing. The equivalent here
+(SURVEY.md §5.8): ``jax.distributed`` initialises the process group, a
+GLOBAL mesh spans every card of every process, scene tables replicate,
+pixel tiles shard over the mesh's ray axis, and XLA reduces frame
+statistics / scene-parameter gradients across the mesh automatically from
+the sharding contract.
 
-Usage (one python process per host, e.g. under ray/slurm/GKE):
+Usage: one python process per host, which uses every card of its host; or
+one process per card, when the launcher names each process's rank on its
+host (``JAX_LOCAL_PROCESS_ID``, ``SLURM_LOCALID`` or
+``OMPI_COMM_WORLD_LOCAL_RANK``):
 
     from source_tpu.parallel import distributed
     distributed.initialise()            # env-driven; no-op single-process
@@ -43,10 +46,17 @@ def initialise(coordinator_address=None, num_processes=None, process_id=None,
     """Initialise the JAX process group (jax.distributed.initialize).
 
     All arguments fall back to the standard environment variables
-    (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID, or the
-    cloud-TPU metadata when present). Calling with no configuration in a
+    (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID /
+    JAX_LOCAL_DEVICE_IDS). Calling with no configuration in a
     single-process run is a safe no-op, so user scripts can call this
     unconditionally.
+
+    With several processes, no device list and a host-local rank named by
+    the launcher (see ``_LOCAL_RANK_VARS``), each process sees ONE card,
+    the one numbered by that rank: a JAX process reserves most of every
+    card it sees, so two processes on one host sharing all its cards would
+    run the second out of memory. Without such a rank each process is
+    taken to be alone on its host and uses all of its cards.
     """
     global _INITIALISED
     import jax
@@ -61,8 +71,9 @@ def initialise(coordinator_address=None, num_processes=None, process_id=None,
     if process_id is None and "JAX_PROCESS_ID" in os.environ:
         process_id = int(os.environ["JAX_PROCESS_ID"])
     if coordinator_address is None and num_processes is None:
-        # single-process run (or TPU pod auto-configuration not requested)
-        return
+        return  # single-process run
+    local_device_ids = _local_device_ids(local_device_ids, num_processes,
+                                         os.environ)
     jax.distributed.initialize(
         coordinator_address=coordinator_address,
         num_processes=num_processes,
@@ -70,6 +81,24 @@ def initialise(coordinator_address=None, num_processes=None, process_id=None,
         local_device_ids=local_device_ids,
     )
     _INITIALISED = True
+
+
+# launchers' names for a process's rank among the processes on its host
+# (SLURM and Open MPI are the ones jax.distributed detects on its own)
+_LOCAL_RANK_VARS = ("JAX_LOCAL_PROCESS_ID", "SLURM_LOCALID",
+                    "OMPI_COMM_WORLD_LOCAL_RANK")
+
+
+def _local_device_ids(local_device_ids, num_processes, environ):
+    """The cards this process may use (None: all it can see)."""
+    if local_device_ids is not None or environ.get("JAX_LOCAL_DEVICE_IDS"):
+        return local_device_ids
+    if not num_processes or num_processes < 2:
+        return None
+    for var in _LOCAL_RANK_VARS:
+        if environ.get(var):
+            return [int(environ[var])]
+    return None
 
 
 def is_initialised():
@@ -132,11 +161,11 @@ def make_global_array(mesh, axis_name, host_array):
 
 
 class DistributedEngine(ShardedEngine):
-    """ShardedEngine over the GLOBAL device set (every chip of every host).
+    """ShardedEngine over the GLOBAL device set (every card of every process).
 
-    On a single host this degenerates to ShardedEngine over local devices.
+    In one process this degenerates to ShardedEngine over local devices.
     Observers handed this engine shard their pixel-tile axis over all
-    chips; each host's observe() call must pass the same task list (the
+    cards; each process's observe() call must pass the same task list (the
     scenegraph is replicated by construction — same user script runs on
     every host).
     """

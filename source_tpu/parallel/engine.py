@@ -1,6 +1,6 @@
 """Multi-device rendering and differentiable-render training steps.
 
-TPU-native replacement for the reference's MulticoreEngine task farm
+Device-mesh replacement for the reference's MulticoreEngine task farm
 (raysect/core/workflow.py:123-326, SURVEY.md §2.12): the DP axis is the ray
 batch. Scene tables (a few KB) are replicated to every device; pixel tiles
 are sharded along a 1-D ``rays`` mesh axis; per-pixel statistics come back
@@ -109,11 +109,9 @@ def sharded_render_batch(scene: CompiledScene, cfg: RayConfig, origin,
                          direction, key, mesh=None, axis_name="rays",
                          weight=None, differentiable=False):
     """``render_batch`` under ``jax.shard_map``: every device runs the FULL
-    production tracer — including the Pallas kernel paths (fused span, leaf
-    BVH, mesh packet) — on its local ray shard. This is the multi-chip
-    execution path for the kernels that produce the headline numbers; the
-    per-shard RNG key is ``fold_in(key, axis_index)``, so a single-device
-    run of the same per-shard programs is bit-identical
+    production tracer on its local ray shard. The per-shard RNG key is
+    ``fold_in(key, axis_index)``, so a single-device run of the same
+    per-shard programs is bit-identical on the CPU mesh
     (tests/test_sharding.py::test_sharded_fused_trace_parity).
 
     Scene tables replicate (a few KB); lane-indexed state shards over
@@ -138,10 +136,11 @@ def sharded_render_batch(scene: CompiledScene, cfg: RayConfig, origin,
             overflow=jax.lax.psum(final.overflow, axis_name))
 
     w_arg = weight if have_w else jnp.zeros((origin.shape[0],), origin.dtype)
-    fn = jax.shard_map(
+    # jit: shard_map cannot evaluate the tracer's checkpointed scan eagerly
+    fn = jax.jit(jax.shard_map(
         local, mesh=mesh, check_vma=False,
         in_specs=(P(), shard, shard, shard, P()),
-        out_specs=_state_specs(axis_name))
+        out_specs=_state_specs(axis_name)))
     return fn(scene, origin, direction, w_arg, key)
 
 
@@ -166,10 +165,10 @@ def sharded_render_loss_and_grads(scene: CompiledScene, cfg: RayConfig,
             err = (final.radiance - tgt).astype(jnp.float32)
             return jax.lax.psum(jnp.sum(err * err), axis_name)
 
-        total = jax.shard_map(
+        total = jax.jit(jax.shard_map(
             local, mesh=mesh, check_vma=False,
             in_specs=(P(), shard, shard, shard, P()),
-            out_specs=P())(scene, origin, direction, target, key)
+            out_specs=P()))(scene, origin, direction, target, key)
         return total / n_total
 
     return jax.value_and_grad(loss_fn, allow_int=True)(scene)
@@ -205,7 +204,7 @@ class SerialEngine(RenderEngine):
 
 class MulticoreEngine(ShardedEngine, RenderEngine):
     """Name-parity alias for the reference's default engine
-    (core/workflow.py:123): on TPU the "cores" are mesh devices and the
+    (core/workflow.py:123): here the "cores" are mesh devices and the
     task farm is the sharded tile kernel; the serial ``run`` contract is
     honoured for host-side task lists."""
 

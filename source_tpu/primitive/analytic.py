@@ -1,6 +1,6 @@
 """Batched analytic primitive intersection kernels (local space).
 
-TPU-native replacement for the reference's per-object Cython ``hit()``
+Vectorised replacement for the reference's per-object Cython ``hit()``
 implementations (raysect/primitive/{sphere,box,cylinder,cone,parabola,
 torus}.pyx). Each primitive type provides three *vectorized* functions
 operating in the primitive's local frame:
@@ -370,8 +370,7 @@ def torus_root_valid(t, px, py, pz, R, r):
     emit pseudo-roots far from the surface (the quartic coefficients grow
     like |o|^4, so cancellation leaves |poly| ~ eps * |o|^4 ~ 0 at points
     nowhere near the torus); a legitimate polished root's residual is
-    ~eps * r * |t| instead. Shared (identical fp ops) by the streaming
-    candidates and the Pallas kernels so both paths agree bit-for-bit."""
+    ~eps * r * |t| instead."""
     rad2 = px * px + py * py
     rad = jnp.sqrt(rad2 + 1e-12)
     f = (rad - R) * (rad - R) + pz * pz - r * r
@@ -380,11 +379,17 @@ def torus_root_valid(t, px, py, pz, R, r):
 
 
 def candidates_torus(o, d, params):
-    """Torus quartic (torus.pyx:46; solve_quartic per utility.pxd:102)."""
+    """Torus quartic (torus.pyx:46; solve_quartic per utility.pxd:102).
+
+    The quartic is formed about the ray's point of closest approach to the
+    torus centre, not its origin: the coefficients grow like |o|^4, so in
+    f32 a distant origin cancels the roots away. Roots are shifted back to
+    the caller's ray parameter."""
     R = params[..., 0]
     r = params[..., 1]
-    # pre-normalise for conditioning; assume |d| == 1 upstream; keep general:
     dd = jnp.sum(d * d, axis=-1)
+    t_c = -jnp.sum(o * d, axis=-1) / jnp.maximum(dd, 1e-30)
+    o = o + t_c[..., None] * d
     od = jnp.sum(o * d, axis=-1)
     oo = jnp.sum(o * o, axis=-1)
     k = oo - r * r - R * R
@@ -400,7 +405,7 @@ def candidates_torus(o, d, params):
     pz = o[..., 2:3] + ts * d[..., 2:3]
     valid = valid & torus_root_valid(ts, px, py, pz, R[..., None],
                                      r[..., None])
-    return jnp.where(valid, roots, _INF)
+    return jnp.where(valid, roots + t_c[..., None], _INF)
 
 
 def normal_torus(p, params):

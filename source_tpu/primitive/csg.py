@@ -1,9 +1,9 @@
 """Constructive solid geometry primitives.
 
-TPU-native re-design of raysect/primitive/csg.pyx (CSGPrimitive:42,
+Vectorised re-design of raysect/primitive/csg.pyx (CSGPrimitive:42,
 Union:330, Intersect:387, Subtract:491). The reference resolves CSG by
 lazily enumerating child intersections through ``next_intersection`` cursors;
-on TPU that becomes a *bounded all-hits* formulation (SURVEY.md §7): every
+here that becomes a *bounded all-hits* formulation (SURVEY.md §7): every
 analytic leaf reports all boundary crossings up front, and the wavefront
 intersector finds the first crossing where the boolean inside-state of the
 compiled postfix program flips. Host-side, these classes just build that

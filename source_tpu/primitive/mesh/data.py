@@ -139,24 +139,6 @@ class MeshData:
         import jax.numpy as jnp
 
         from ...tracer.meshtrace import MeshTables
-        from ...tracer.pallas_mesh import pack_mesh_host, pack_mesh_paged_host
-
-        page_meta = ()
-        packed = pack_mesh_host(
-            self.vertices, self.triangles, self.bvh.node_lo, self.bvh.node_hi,
-            self.bvh.node_skip, self.bvh.node_first, self.bvh.node_count,
-        )
-        if packed is not None:
-            packed = {k: jnp.asarray(v) for k, v in packed.items()}
-        else:
-            # tables exceed VMEM: page the mesh (per-page private BVHs,
-            # stacked into one table set for the single paged kernel)
-            stacked, metas = pack_mesh_paged_host(
-                self.vertices, self.triangles, max_leaf=self.max_leaf,
-            )
-            if stacked is not None:
-                packed = {k: jnp.asarray(v) for k, v in stacked.items()}
-                page_meta = metas
 
         return MeshTables(
             vertices=jnp.asarray(self.vertices, dtype),
@@ -170,8 +152,6 @@ class MeshData:
             node_count=jnp.asarray(self.bvh.node_count, jnp.int32),
             w2l=jnp.asarray(w2l, dtype),
             l2w=jnp.asarray(l2w, dtype),
-            packed=packed,
-            page_meta=page_meta,
             n_nodes=self.bvh.n_nodes,
             max_leaf=self.max_leaf,
             smoothing=self.smoothing,

@@ -47,27 +47,15 @@ def _load_meshio_native():
     if _MESHIO_LIB is not None or _MESHIO_FAILED:
         return _MESHIO_LIB
     import ctypes
-    import os
     import subprocess
-    import tempfile
 
-    src = os.path.join(os.path.dirname(__file__), "..", "..", "..", "csrc",
-                       "meshio.cpp")
-    src = os.path.abspath(src)
-    if not os.path.exists(src):
-        _MESHIO_FAILED = True
-        return None
-    cache_dir = os.path.join(tempfile.gettempdir(), "source_tpu_native")
-    os.makedirs(cache_dir, exist_ok=True)
-    lib_path = os.path.join(cache_dir, "libmeshio.so")
+    from ...runtime import build_native
+
     try:
-        if (not os.path.exists(lib_path)
-                or os.path.getmtime(lib_path) < os.path.getmtime(src)):
-            subprocess.run(
-                ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", src,
-                 "-o", lib_path],
-                check=True, capture_output=True,
-            )
+        lib_path = build_native("meshio")
+        if lib_path is None:
+            _MESHIO_FAILED = True
+            return None
         lib = ctypes.CDLL(lib_path)
         i64p = ctypes.POINTER(ctypes.c_int64)
         f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
@@ -77,7 +65,7 @@ def _load_meshio_native():
         lib.obj_read.argtypes = [ctypes.c_char_p, f32p, f32p, i32p, i32p]
         lib.obj_read.restype = ctypes.c_int
         _MESHIO_LIB = lib
-    except Exception:
+    except (OSError, subprocess.CalledProcessError):
         _MESHIO_FAILED = True
         _MESHIO_LIB = None
     return _MESHIO_LIB

@@ -1,6 +1,6 @@
 """Batched scene intersection for the wavefront tracer.
 
-TPU-native replacement for the reference's World.hit -> kd-tree -> per-object
+Vectorised replacement for the reference's World.hit -> kd-tree -> per-object
 Primitive.hit chain (SURVEY.md §3.3). For every ray in a batch it computes
 ALL leaf boundary crossings with the grouped-by-type analytic kernels, then
 resolves entities:
@@ -22,7 +22,6 @@ Float32 epsilon strategy: the reference uses 1e-9 absolute offsets in f64
 from __future__ import annotations
 
 import dataclasses
-import os
 from typing import Any
 
 import jax
@@ -32,10 +31,8 @@ import numpy as np
 from ..core.math import batch as vmath
 from ..primitive import analytic as _a
 from ..compiler.scene import CompiledScene, _program_to_closure
-from .meshtrace import (
-    DENSE_TRI_LIMIT, mesh_forest_intersect, mesh_intersect,
-)
-from .pallas_analytic import analytic_bvh_winner
+from . import meshtrace
+from .meshtrace import mesh_forest_intersect, mesh_intersect
 
 __all__ = ["HitRecord", "intersect_scene", "leaf_candidates", "leaf_contains", "entity_contains", "T_EPS"]
 
@@ -70,21 +67,21 @@ class HitRecord:
     bary_v: Any = None  # f32[N] barycentric v of the mesh hit
 
 
-# below this slice width the [N,4]@[4,3l] contraction's extra kernel
-# launches cost more than the fused VPU mat-vecs they replace (measured on
-# v5e: the 8-leaf Cornell scene ran ~15% slower through the MXU path)
-_MXU_TRANSFORM_MIN_LEAVES = 16
+# below this slice width the per-leaf elementwise mat-vecs are used; wider
+# slices fold into one matrix product per quantity (crossover not measured
+# on the H100 yet)
+_MATMUL_TRANSFORM_MIN_LEAVES = 16
 
 
-def _rays_to_local_mxu(w2l, origin, direction):
-    """Transform a ray batch into EVERY leaf frame of a slice with one MXU
-    contraction per quantity instead of N*l VPU mat-vecs: the per-leaf
-    affine rows fold into a [4, 3l] table and ``[N,4] @ [4,3l]`` yields all
-    local origins at once (same trick as the dense mesh forest,
-    meshtrace.py). f32 precision is forced — geometry must not drop to the
-    TPU's default bf16 matmul. Returns (o_loc, d_loc) as [N, l, 3]."""
+def _rays_to_local(w2l, origin, direction):
+    """Transform a ray batch into EVERY leaf frame of a slice with one
+    contraction per quantity instead of N*l elementwise mat-vecs: the
+    per-leaf affine rows fold into a [4, 3l] table and ``[N,4] @ [4,3l]``
+    yields all local origins at once (same trick as the dense mesh forest,
+    meshtrace.py). f32 precision is forced — geometry must not drop to
+    TF32. Returns (o_loc, d_loc) as [N, l, 3]."""
     l = w2l.shape[0]
-    if l < _MXU_TRANSFORM_MIN_LEAVES:
+    if l < _MATMUL_TRANSFORM_MIN_LEAVES:
         o_loc = vmath.transform_point(w2l[None, :], origin[:, None, :])
         d_loc = vmath.transform_vector(w2l[None, :], direction[:, None, :])
         return o_loc, d_loc
@@ -103,10 +100,10 @@ def _rays_to_local_mxu(w2l, origin, direction):
     return o_loc, d_loc
 
 
-def _points_to_local_mxu(w2l, point):
+def _points_to_local(w2l, point):
     """Points [..., 3] into every leaf frame of a slice: [..., l, 3]."""
     l = w2l.shape[0]
-    if l < _MXU_TRANSFORM_MIN_LEAVES:
+    if l < _MATMUL_TRANSFORM_MIN_LEAVES:
         return vmath.transform_point(w2l, point[..., None, :])
     lead = point.shape[:-1]
     M = w2l[:, :3, :].transpose(2, 0, 1).reshape(4, l * 3)
@@ -130,7 +127,7 @@ def leaf_candidates(scene: CompiledScene, origin, direction):
         w2l = scene.leaf_w2l[start:stop]  # [l,4,4]
         params = scene.leaf_params[start:stop]  # [l,PB]
         # local rays: [N, l, 3]
-        o_loc, d_loc = _rays_to_local_mxu(w2l, origin, direction)
+        o_loc, d_loc = _rays_to_local(w2l, origin, direction)
         t = _a.CANDIDATE_FNS[type_id](o_loc, d_loc, params[None, :, :])
         parts.append(t)
     return jnp.concatenate(parts, axis=1)  # [N, L, K]
@@ -142,7 +139,7 @@ def leaf_contains(scene: CompiledScene, point):
     for type_id, start, stop in scene.type_slices:
         w2l = scene.leaf_w2l[start:stop]
         params = scene.leaf_params[start:stop]
-        p_loc = _points_to_local_mxu(w2l, point)
+        p_loc = _points_to_local(w2l, point)
         parts.append(_a.CONTAINS_FNS[type_id](p_loc, params))
     return jnp.concatenate(parts, axis=-1)
 
@@ -204,30 +201,6 @@ def _leaf_rows(scene: CompiledScene, leaf_idx):
             jnp.round(rows[..., -1]).astype(jnp.int32))
 
 
-def _single_leaf_candidates(scene: CompiledScene, leaf_idx, origin, direction,
-                            types=None, rows=None):
-    """Differentiable all-crossings of ONE (gathered) leaf per ray: t[N,K].
-
-    Used to recompute the packet-BVH winner's crossing with gradients —
-    only the winning leaf's test contributes to the output, so this yields
-    cotangents identical to differentiating the full traversal."""
-    w2l, params = (_leaf_rows(scene, leaf_idx) if rows is None else rows)[:2]
-    o_loc = vmath.transform_point(w2l, origin)
-    d_loc = vmath.transform_vector(w2l, direction)
-    lt = _leaf_type_of(scene, leaf_idx)
-    cand = jnp.full(origin.shape[:-1] + (_a.MAX_HITS,), _INF, origin.dtype)
-    present = {t for t, _, _ in scene.type_slices}
-    if types is not None:
-        present &= set(types)
-    for tid, fn in _a.CANDIDATE_FNS.items():
-        if tid not in present:
-            continue
-        m = lt == tid
-        safe = jnp.where(m[:, None], params, _SAFE_PARAMS[None, : params.shape[1]])
-        cand = jnp.where(m[:, None], fn(o_loc, d_loc, safe), cand)
-    return cand
-
-
 def _leaf_contains_single(scene: CompiledScene, leaf_idx, point, rows=None):
     """Point-in-leaf for ONE (gathered) leaf per ray: bool[N]. Replaces the
     full [N, L] leaf_contains sweep when only the winning leaf matters."""
@@ -272,17 +245,11 @@ def _leaf_normal(scene: CompiledScene, leaf_idx, p_local, params=None):
     return n
 
 
-def intersect_scene(scene: CompiledScene, origin, direction, t_min_scale=None,
-                    need_grad=True):
+def intersect_scene(scene: CompiledScene, origin, direction, t_min_scale=None):
     """Nearest-hit query for a ray batch.
 
     origin/direction: f32[N,3] world space (direction unit length).
     Returns a HitRecord.
-
-    ``need_grad=False`` (forward-only tracing, e.g. ``trace_rays`` /
-    observers) lets full-coverage leaf-BVH scenes consume the packet
-    kernel's complete winner record (t/entity/normal/exiting) directly,
-    skipping the differentiable one-hot recompute entirely.
     """
     N = origin.shape[0]
     eps = T_EPS * jnp.maximum(
@@ -292,24 +259,8 @@ def intersect_scene(scene: CompiledScene, origin, direction, t_min_scale=None,
         eps = eps * t_min_scale
 
     E = scene.n_entities
-    # the packet kernel pays off on real TPU hardware; off-TPU the
-    # interpret-mode Pallas walk is orders slower than streaming, so only
-    # an explicit override (tests) engages it there
-    # SOURCE_TPU_LEAF_BVH=0 also disables the kernel at TRACE time (a scene
-    # compiled with tables in another process would otherwise still take the
-    # kernel path — ADVICE r3), which makes A/B debugging possible without
-    # recompiling the scene.
-    use_bvh = scene.leaf_bvh is not None and (
-        os.environ.get("SOURCE_TPU_LEAF_BVH", "") != "0"
-        and (
-            jax.default_backend() == "tpu"
-            or os.environ.get("SOURCE_TPU_LEAF_BVH", "") == "1"
-        )
-    )
 
-    # running nearest-hit triple across all entity classes; the per-entity
-    # [N, E] distance table is materialised ONLY on the no-BVH streaming
-    # path (for >1k-leaf scenes it would dominate HBM traffic)
+    # running nearest-hit triple across all entity classes
     t_best = jnp.full((N,), _INF, origin.dtype)
     ent_best = jnp.full((N,), -1, jnp.int32)
     leaf_best = jnp.zeros((N,), jnp.int32)
@@ -319,92 +270,7 @@ def intersect_scene(scene: CompiledScene, origin, direction, t_min_scale=None,
         csg_leaf_ids.update(leaf_ids)
 
     csg_cand = {}  # global leaf id -> [N, K] candidates
-    fast_path = False
-    win = None
-    rows_w = None
-    if scene.n_leaves and use_bvh:
-        # (a) packet-BVH winner over the covered simple leaves (logarithmic
-        # in leaf count; reference core/acceleration/kdtree.pyx analogue),
-        # then a differentiable recompute of the winner's crossing.
-        win = analytic_bvh_winner(
-            scene.leaf_bvh, scene.leaf_bvh_meta, origin, direction, eps,
-            # coherence sorting only pays when the tree is deep enough for
-            # divergent packets to visit very different node sets
-            sort_rays=len(scene.bvh_leaf_ids) >= 64,
-        )
-        win_leaf = win["leaf"]
-        # forward-only tracing on a fully-covered scene consumes the
-        # kernel's complete record; the differentiable path recomputes the
-        # winner's crossing so geometry cotangents flow into the tables
-        fast_path = (not need_grad) and len(scene.bvh_leaf_ids) == scene.n_leaves
-        if fast_path:
-            rows_w = None
-            valid = win_leaf >= 0
-            t_best = jnp.where(valid, win["t"], t_best)
-            ent_best = jnp.where(valid, win["entity"], ent_best)
-            leaf_best = jnp.where(valid, win_leaf, leaf_best)
-        else:
-            leaf_c = jnp.maximum(win_leaf, 0)
-            rows_w = _leaf_rows(scene, leaf_c)
-            cand_w = _single_leaf_candidates(
-                scene, leaf_c, origin, direction,
-                types=scene.leaf_bvh_meta[5], rows=rows_w,
-            )
-            pos_w = jnp.where(cand_w > eps[:, None], cand_w, _INF)
-            t_w = jnp.min(pos_w, axis=-1)
-            if scene.kernel_csg_entities:
-                # kernel-resolved CSG lanes: the boundary may be the
-                # winning child's EXIT crossing (e.g. the far surface of a
-                # subtracted solid), so recompute by the kernel's crossing
-                # index instead of nearest-positive (convex children:
-                # candidates are exactly [entry, exit, inf...])
-                is_csg = jnp.zeros_like(win_leaf, dtype=bool)
-                for e in scene.kernel_csg_entities:
-                    is_csg = is_csg | (win["entity"] == e)
-                t_idx = jnp.where(
-                    win["crossing_hi"], cand_w[:, 1], cand_w[:, 0])
-                t_w = jnp.where(is_csg, t_idx, t_w)
-            valid = (win_leaf >= 0) & jnp.isfinite(t_w)
-            t_best = jnp.where(valid, t_w, t_best)
-            ent_best = jnp.where(valid, rows_w[2], ent_best)
-            leaf_best = jnp.where(valid, win_leaf, leaf_best)
-
-        # (b) leftover leaves stream as before: CSG children (the boolean
-        # resolve needs ALL their crossings) and torus simple leaves (the
-        # quartic stays out of the packet kernel)
-        bvh_set = set(scene.bvh_leaf_ids)
-        for type_id, start, stop in scene.type_slices:
-            left = [i for i in range(start, stop) if i not in bvh_set]
-            if not left:
-                continue
-            ids = jnp.asarray(left)
-            w2l = scene.leaf_w2l[ids]
-            params = scene.leaf_params[ids]
-            o_loc, d_loc = _rays_to_local_mxu(w2l, origin, direction)
-            cand_slice = _a.CANDIDATE_FNS[type_id](o_loc, d_loc, params[None, :, :])
-            simple_local = [j for j, g in enumerate(left) if g not in csg_leaf_ids]
-            if simple_local:
-                cand_pos = jnp.where(
-                    cand_slice > eps[:, None, None], cand_slice, _INF
-                )
-                t_leaf = jnp.min(cand_pos, axis=-1)  # [N, l]
-                sub = jnp.asarray(simple_local)
-                t_sub = t_leaf[:, sub]
-                tmin_row = jnp.min(t_sub, axis=1)
-                is_min = t_sub <= tmin_row[:, None]
-                onehot = is_min & (jnp.cumsum(is_min, axis=1) == 1)
-                g_ids = jnp.asarray([left[j] for j in simple_local])
-                win_g = jnp.sum(jnp.where(onehot, g_ids[None, :], 0), axis=1)
-                ent_row = scene.leaf_entity[g_ids]
-                ent_g = jnp.sum(jnp.where(onehot, ent_row[None, :], 0), axis=1)
-                better = tmin_row < t_best
-                t_best = jnp.where(better, tmin_row, t_best)
-                ent_best = jnp.where(better, ent_g.astype(jnp.int32), ent_best)
-                leaf_best = jnp.where(better, win_g.astype(jnp.int32), leaf_best)
-            for j, g in enumerate(left):
-                if g in csg_leaf_ids:
-                    csg_cand[g] = cand_slice[:, j, :]
-    elif scene.n_leaves:
+    if scene.n_leaves:
         # Per-type streaming: each type slice's candidates fold into
         # per-entity minima IMMEDIATELY, so the full [N, L, K] crossing
         # tensor is never materialised in HBM. Only the few leaves owned by
@@ -414,7 +280,7 @@ def intersect_scene(scene: CompiledScene, origin, direction, t_min_scale=None,
         for type_id, start, stop in scene.type_slices:
             w2l = scene.leaf_w2l[start:stop]  # [l,4,4]
             params = scene.leaf_params[start:stop]  # [l,PB]
-            o_loc, d_loc = _rays_to_local_mxu(w2l, origin, direction)
+            o_loc, d_loc = _rays_to_local(w2l, origin, direction)
             cand_slice = _a.CANDIDATE_FNS[type_id](o_loc, d_loc, params[None, :, :])
             # nearest positive crossing per leaf in this slice
             cand_pos = jnp.where(cand_slice > eps[:, None, None], cand_slice, _INF)
@@ -444,12 +310,9 @@ def intersect_scene(scene: CompiledScene, origin, direction, t_min_scale=None,
         ent_best = jnp.where(fin0, ent0, ent_best)
         leaf_best = jnp.where(fin0, leaf0, leaf_best)
 
-    # per-ray bookkeeping for csg winners (kernel-resolved entities are
-    # handled entirely inside the packet kernel when it is active)
+    # per-ray bookkeeping for csg winners
     csg_t = []
     for e, leaf_ids, program in scene.csg_entities:
-        if use_bvh and e in scene.kernel_csg_entities:
-            continue
         inside_fn = _program_to_closure(program)
         ids = jnp.asarray(leaf_ids)
         tc = jnp.stack([csg_cand[g] for g in leaf_ids], axis=1)  # [N, l, K]
@@ -462,8 +325,7 @@ def intersect_scene(scene: CompiledScene, origin, direction, t_min_scale=None,
         ).reshape(N, C)
         src_leaf = jnp.broadcast_to(ids[None, :, None], (N, l, _a.MAX_HITS)).reshape(N, C)
         # sort candidates by t — multi-operand lax.sort carries the leaf ids
-        # through the sorting network (argsort + take_along_axis row gathers
-        # serialize on TPU)
+        # through the sorting network instead of argsort + row gathers
         t_sorted, leaf_sorted, local_sorted = jax.lax.sort(
             (t_flat, src_leaf, local_leaf), dimension=-1, num_keys=1
         )
@@ -515,23 +377,20 @@ def intersect_scene(scene: CompiledScene, origin, direction, t_min_scale=None,
 
     # mesh entities: stackless BVH traversal in each mesh's local frame
     # (direction deliberately NOT renormalised so t shares world units).
-    # On TPU, ALL dense-eligible meshes merge into ONE world-space forest
-    # call (mesh_forest_intersect): the per-mesh ray transforms fold into
-    # the per-triangle tables and the union streams through the MXU once.
+    # Two or more small meshes merge into ONE world-space forest call
+    # (mesh_forest_intersect): the per-mesh ray transforms fold into the
+    # per-triangle tables and the union streams through one product. A lone
+    # small mesh walks its BVH: for one mesh, dense is no faster end to end.
     mesh_win = []
     forest = []
     singles = []
-    use_forest = (
-        jax.default_backend() == "tpu"
-        and os.environ.get("SOURCE_TPU_NO_DENSE", "") != "1"
-    )
     for e, slot in scene.mesh_entities:
         mesh = scene.meshes[slot]
-        if use_forest and mesh.triangles.shape[0] <= DENSE_TRI_LIMIT:
+        if mesh.triangles.shape[0] <= meshtrace.DENSE_TRI_LIMIT:
             forest.append((e, slot, mesh))
         else:
             singles.append((e, slot, mesh))
-    if len(forest) == 1:  # no fan-in to amortise; single-mesh path is equal
+    if len(forest) == 1:
         singles.insert(0, forest.pop())
     if forest:
         results = mesh_forest_intersect(
@@ -562,28 +421,14 @@ def intersect_scene(scene: CompiledScene, origin, direction, t_min_scale=None,
     point = origin + t_safe[:, None] * direction
     delta = jnp.maximum(T_EPS, T_EPS * jnp.abs(t_safe))
 
-    if scene.n_leaves and fast_path:
-        # forward-only full-coverage scenes: the kernel already produced
-        # the winner's unit outward normal and origin-containment flag —
-        # no host-side row selects at all (mesh winners overwrite below)
-        leaf = leaf_best
-        n_world = win["normal"]
-        inside_before = win["inside"]
-    elif scene.n_leaves:
+    if scene.n_leaves:
         # winning leaf (tracked through the running triple; csg updates
         # already recorded their boundary leaf)
         leaf = leaf_best
 
         # one fused row select serves the normal, its transform AND the
-        # containment test below. When the BVH covers EVERY leaf (no CSG
-        # children, no torus leftovers) the analytic winner on every lane
-        # IS the BVH winner, so its gathered rows are reused instead of a
-        # second one-hot contraction (mesh-winning lanes get overwritten
-        # below either way).
-        if use_bvh and rows_w is not None and len(scene.bvh_leaf_ids) == scene.n_leaves:
-            rows = rows_w
-        else:
-            rows = _leaf_rows(scene, leaf)
+        # containment test below
+        rows = _leaf_rows(scene, leaf)
         w2l, leaf_params = rows[:2]
 
         # outward leaf normal at hit (local -> world with inverse-transpose)
@@ -603,13 +448,6 @@ def intersect_scene(scene: CompiledScene, origin, direction, t_min_scale=None,
         inside_before = jnp.zeros((N,), bool)
     for e, bt, bleaf, binside in csg_t:
         inside_before = jnp.where(entity == e, binside, inside_before)
-    if use_bvh and win is not None:
-        # kernel-resolved CSG lanes: 'exiting' is the ENTITY-level inside
-        # state the kernel's boolean resolve produced, not the winning
-        # child's own containment
-        for e in scene.kernel_csg_entities:
-            inside_before = jnp.where(entity == e, win["inside"],
-                                      inside_before)
 
     # mesh winners: smoothed (or face) normal, exiting from face orientation
     # (mesh.pyx:718-804 MeshIntersection semantics)

@@ -1,6 +1,6 @@
 """Batched stackless BVH traversal + triangle intersection.
 
-TPU-native replacement for the reference's mesh trace chain
+Vectorised replacement for the reference's mesh trace chain
 (raysect/primitive/mesh/mesh.pyx:506-713: KDTree3DCore recursive descent +
 watertight Woop triangle test). The recursion becomes a single
 ``lax.while_loop`` over the ray batch: each ray lane carries a node pointer
@@ -22,7 +22,6 @@ local-space hits share the world ray parameter (mesh.pyx:1178 semantics).
 from __future__ import annotations
 
 import dataclasses
-import os
 from typing import Any
 
 import jax
@@ -53,13 +52,7 @@ class MeshTables:
     node_count: Any  # i32[NN]
     w2l: Any  # f32[4,4] world -> local
     l2w: Any  # f32[4,4]
-    # lane-major packed tables for the Pallas packet kernel (pallas_mesh.py):
-    # a dict for meshes fitting the VMEM budget, a TUPLE of per-page dicts
-    # for larger meshes (page_meta carries each page's static BVH shape), or
-    # None when packing was skipped
-    packed: Any = None
 
-    page_meta: tuple = dataclasses.field(metadata=dict(static=True), default=())
     n_nodes: int = dataclasses.field(metadata=dict(static=True), default=0)
     max_leaf: int = dataclasses.field(metadata=dict(static=True), default=4)
     smoothing: bool = dataclasses.field(metadata=dict(static=True), default=True)
@@ -76,10 +69,8 @@ def _slab_test(node_lo, node_hi, o, inv_d, t_max):
 
 
 def _woop_test(v0, v1, v2, o, d, t_min):
-    """Watertight Woop test (tracer/watertight.py — the same component
-    functions the Pallas packet kernels run, so the XLA fallback and the
-    kernels agree bit-for-bit). Returns (t, u, v, front, valid) with NO
-    epsilon pad (mesh.pyx:566-713 semantics)."""
+    """Watertight Woop test (tracer/watertight.py). Returns (t, u, v,
+    front, valid) with NO epsilon pad (mesh.pyx:566-713 semantics)."""
     from .watertight import woop_setup, woop_tri_test
 
     s = woop_setup(o[..., 0], o[..., 1], o[..., 2],
@@ -94,7 +85,7 @@ def _tri_test(v0, v1, v2, o, d, t_min, tol=1e-6):
     """Moller-Trumbore with an epsilon pad. Returns (t, u, v, front,
     valid). Kept for the DIFFERENTIABLE winner recomputes (smooth u/v/t
     expressions at the already-selected triangle) and the dense all-pairs
-    MXU path; the traversal hit DECISIONS use ``_woop_test``."""
+    path; the traversal hit DECISIONS use ``_woop_test``."""
     e1 = v1 - v0
     e2 = v2 - v0
     p = vmath.cross(d, e2)
@@ -123,44 +114,29 @@ def mesh_intersect(mesh: MeshTables, origin, direction, t_min, t_max=None):
     t_min: f32[N] minimum ray parameter (epsilon advance).
     Returns dict(t, tri, u, v, front) with t=+inf on miss.
 
-    On TPU, meshes whose packed tables fit VMEM route to the Pallas packet
-    kernel (pallas_mesh.py) — the XLA per-lane pointer chase below gathers
-    from HBM every tree step and is ~1000x slower there. Gradients are
-    preserved via a custom VJP whose backward differentiates this XLA
-    expression.
+    Walks the threaded BVH; differentiable w.r.t. the vertex array through
+    the winning triangle (custom VJP).
     """
     if t_max is not None:
         return _mesh_intersect_xla(mesh, origin, direction, t_min, t_max)
-    if (
-        mesh.triangles.shape[0] <= DENSE_TRI_LIMIT
-        and jax.default_backend() == "tpu"
-        and os.environ.get("SOURCE_TPU_NO_DENSE", "") != "1"
-    ):
-        return _mesh_intersect_dense(mesh, origin, direction, t_min)
-    if (
-        mesh.packed is not None
-        and jax.default_backend() == "tpu"
-        and os.environ.get("SOURCE_TPU_NO_PALLAS", "") != "1"
-    ):
-        return _mesh_intersect_packet(mesh, origin, direction, t_min)
     return _mesh_intersect_xla_diff(mesh, origin, direction, t_min)
 
 
-# Below this triangle count the all-pairs MXU formulation beats BVH packet
-# traversal. Measured on v5e (131k incoherent rays): M=320 dense 15.9 ms vs
-# packet 22.1; M=1280 24.8 vs 42.4; M=5120 51.0 vs 72.7; M=20480 157 vs 101
-# — crossover ~10k tris, where the [N, 4*chunk] matmul output HBM traffic
-# overtakes the packet walk.
-DENSE_TRI_LIMIT = 8192
+# When two or more meshes of at most this many triangles share a scene,
+# intersect_scene tests them all in one dense forest call; a lone mesh, or
+# a larger one, walks its BVH. Measured on one H100 (400 W limit), 131k
+# rays, 12-bounce forward trace, dense vs BVH: the suite's two-mesh scene
+# (320 + 1,024 tris, one forest call) 15.5 vs 90.6 ms; one mesh of 1,280
+# tris 38.9 vs 35.2 ms, 2,048 52.9 vs 53.4, 3,072 78.8 vs 64.1, 8,192 210
+# vs 106 (benchmarks/mesh_routes.py).
+DENSE_TRI_LIMIT = 2048
 _DENSE_CHUNK = 512
 
 
-def _mesh_intersect_dense(mesh: MeshTables, origin, direction, t_min,
-                          tol=1e-6):
-    """All-pairs Möller–Trumbore on the MXU — no BVH, no gathers.
+def _dense_core(a, b, c3, origin, direction, t_min, tol=1e-6):
+    """All-pairs Möller–Trumbore as one matrix product — no BVH, no gathers.
 
-    TPU-first redesign of the small-mesh hot path: solving
-    ``o + t d = a + u e1 + v e2`` by Cramer's rule expands (Plücker style)
+    Solving ``o + t d = a + u e1 + v e2`` by Cramer's rule expands (Plücker style)
     into terms bilinear in per-RAY vectors (c = o x d, d, o, 1) and per-
     TRIANGLE vectors, so the numerators and determinant for EVERY
     (ray, triangle) pair are ONE matmul ``[N, 10] @ [10, 4M]``:
@@ -172,23 +148,13 @@ def _mesh_intersect_dense(mesh: MeshTables, origin, direction, t_min,
 
     which matches the classic formulation exactly (same det/u/v/t as
     `_tri_test`, reference mesh.pyx:616-713 semantics with the f32 epsilon
-    strategy). Triangles stream through the MXU in chunks; a one-hot
+    strategy). Triangles stream through the product in chunks; a
     first-minimum fold keeps the winner. Everything is plain jnp, so the
     render gradient flows through the winning triangle's system natively —
-    no custom VJP. f32 precision is forced on the MXU (HIGHEST): geometry
-    must not drop to bf16.
+    no custom VJP. f32 precision is forced (HIGHEST): geometry must not
+    drop to TF32. The triangle vertex arrays a, b, c3 are [M,3] in any
+    space; the caller picks local or world coordinates.
     """
-    verts = mesh.vertices
-    tris = mesh.triangles
-    return _dense_core(
-        verts[tris[:, 0]], verts[tris[:, 1]], verts[tris[:, 2]],
-        origin, direction, t_min, tol=tol,
-    )
-
-
-def _dense_core(a, b, c3, origin, direction, t_min, tol=1e-6):
-    """All-pairs dense intersection over explicit triangle vertex arrays
-    [M,3] (any space — the caller picks local or world coordinates)."""
     N = origin.shape[0]
     M = a.shape[0]
     e1 = b - a
@@ -273,8 +239,8 @@ def _dense_core(a, b, c3, origin, direction, t_min, tol=1e-6):
     # winner-only recompute: one [N]-row gather of the winning triangle,
     # then the classic per-pair test for exact u/v/front (and a t that is
     # differentiable w.r.t. vertices through the winning system only — the
-    # argmin selection is piecewise constant, same argument as the packet
-    # kernel's custom VJP)
+    # argmin selection is piecewise constant, same argument as the
+    # traversal's custom VJP)
     hit = tri_b >= 0
     tw = jnp.clip(tri_b, 0, M - 1)
     t_r, u_r, v_r, front_r, valid_r = _tri_test(
@@ -294,8 +260,8 @@ def mesh_forest_intersect(meshes, origin, direction, t_min, tol=1e-6):
     """Intersect WORLD-space rays against several small meshes in ONE dense
     call: each mesh's triangles are transformed to world space (folding the
     per-mesh w2l ray transform into the per-triangle table instead), the
-    tables concatenate, and `_dense_core` streams the union through the
-    MXU. Returns one per-mesh result dict (same contract as mesh_intersect,
+    tables concatenate, and `_dense_core` streams the union through one
+    product. Returns one per-mesh result dict (same contract as mesh_intersect,
     page-local triangle ids) so callers can keep per-entity attribution.
 
     Mirrored instance transforms (det(l2w) < 0) flip the triangle winding
@@ -425,30 +391,6 @@ def mesh_hit_count(mesh: MeshTables, origin, direction, t_min):
     return hits
 
 
-# --- Pallas packet-kernel dispatch (TPU) ---------------------------------------------
-
-
-def _packet_impl(mesh, origin, direction, t_min):
-    from .pallas_mesh import (
-        mesh_intersect_pallas_fwd_impl,
-        mesh_intersect_pallas_paged_impl,
-    )
-
-    if mesh.page_meta:
-        return mesh_intersect_pallas_paged_impl(mesh, origin, direction, t_min)
-    return mesh_intersect_pallas_fwd_impl(mesh, origin, direction, t_min)
-
-
-@jax.custom_vjp
-def _mesh_intersect_packet(mesh, origin, direction, t_min):
-    return _packet_impl(mesh, origin, direction, t_min)
-
-
-def _packet_fwd(mesh, origin, direction, t_min):
-    out = _packet_impl(mesh, origin, direction, t_min)
-    return out, (mesh, origin, direction, t_min, out["tri"], out["front"])
-
-
 def _winners_bwd(res, ct):
     """Differentiate the Möller–Trumbore system of the saved WINNING triangle
     per ray — identical cotangents to AD through the full traversal, because
@@ -476,9 +418,6 @@ def _winners_bwd(res, ct):
 
     _, vjp = jax.vjp(winners, mesh, origin, direction, t_min)
     return vjp(ct)
-
-
-_mesh_intersect_packet.defvjp(_packet_fwd, _winners_bwd)
 
 
 @jax.custom_vjp

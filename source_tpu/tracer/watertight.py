@@ -8,14 +8,13 @@ edge functions whose signs are FP-consistent across a shared edge — a ray
 aimed at an edge or vertex registers on at least one adjacent triangle
 (double-hit on exact boundary instead of a crack), with NO epsilon pad.
 The reference falls back to f64 when an edge function is exactly zero;
-TPU has no f64 vectors, so exact zeros are accepted as hits on all
+the tracer stays in f32, so exact zeros are accepted as hits on all
 adjacent triangles (same watertight guarantee: boundary double-count
 resolves by nearest-t, never a leak).
 
 Everything here is elementwise on per-lane COMPONENT arrays, so the
-Pallas packet kernels (pallas_mesh.py) and the XLA traversal fallback
-(meshtrace.py) share one fp route — their hit decisions agree
-bit-for-bit. Verified against Moller-Trumbore on 20k random triangles
+threaded-BVH walk (meshtrace.py) runs it as one fused expression per
+leaf slot. Verified against Moller-Trumbore on 20k random triangles
 (t within 9e-7, u/v within 4e-7, identical hit sets and orientation;
 tests/test_mesh_watertight.py holds the grazing sweeps).
 """
@@ -86,8 +85,8 @@ def woop_tri_test(setup, ax, ay, az, bx, by, bz, cx, cy, cz, t_min):
     # VERTEX-through rays are not covered by that argument: the two
     # near-zero edge functions carry INDEPENDENT rounding noise and can
     # straddle zero on every adjacent triangle (the case the reference
-    # resolves with its f64 fallback, mesh.pyx:566-713 — no f64 vectors on
-    # TPU). Accept an edge function within its FORWARD ERROR BOUND of
+    # resolves with its f64 fallback, mesh.pyx:566-713 — the tracer stays
+    # in f32). Accept an edge function within its FORWARD ERROR BOUND of
     # zero: the bound tracks both the product rounding and the
     # cancellation in the sheared 2-D coordinates (vi - s*vk computed from
     # large translated magnitudes), so a boundary ray double-hits the

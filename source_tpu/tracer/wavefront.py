@@ -1,6 +1,6 @@
 """Wavefront path-trace megakernel.
 
-TPU-native replacement for the reference's recursive estimator
+Vectorised replacement for the reference's recursive estimator
 (optical/ray.pyx:338-455 ``trace``; material dispatch per SURVEY.md §3.2).
 The recursion becomes an iterative loop over bounce depth with a ray-state
 SoA; materials are evaluated branchlessly by masked select over material
@@ -84,10 +84,7 @@ class RayConfig:
     # checkpoint. Larger blocks store the carry only at block boundaries
     # and recompute the inner bounces in the backward pass — bytes /
     # block_size at ~2x block compute, a win only when the trace is
-    # HBM-bandwidth-bound. MEASURED on v5e (glass Cornell, 262k rays):
-    # block 4 regressed fwd+bwd 70 -> 117 ms — at these batch sizes the
-    # trace is launch/occupancy-bound, so recompute is pure overhead. Use
-    # >1 only for very large ray batches that are bandwidth-bound.
+    # memory-bandwidth-bound. Not measured on the H100 yet.
     remat_block: int = 1
     # storage dtype for the spectral path state (throughput/radiance and
     # the [N, B] material intermediates feeding them): "float32" (default,
@@ -95,7 +92,7 @@ class RayConfig:
     # dominant per-bounce HBM traffic; all reductions/compares still run
     # in f32 via promotion, only the stored state rounds — the added
     # rounding noise is measured against MC noise in
-    # tests/test_bf16_state.py and BASELINE.md)
+    # tests/test_bf16_state.py; its speed is not measured on the H100 yet)
     spectral_dtype: str = "float32"
 
 
@@ -161,7 +158,7 @@ def important_direction_sample(scene: CompiledScene, point, u):
     # pick sphere by cdf
     idx = jnp.searchsorted(scene.imp_cdf, u[:, 0], side="left")
     idx = jnp.clip(idx, 0, scene.imp_cdf.shape[0] - 1)
-    # one-hot row pick over the small sphere axis (gathers serialize on TPU)
+    # one-hot row pick over the small sphere axis
     onehot = idx[:, None] == jnp.arange(scene.imp_cdf.shape[0])[None, :]
     ax = jnp.sum(jnp.where(onehot[..., None], axis, 0.0), axis=1)
     cm = jnp.sum(jnp.where(onehot, cos_max, 0.0), axis=1)
@@ -676,35 +673,13 @@ def _n_uniforms(scene: CompiledScene):
     return 16 if scene.has_roughen else 10
 
 
-def _fused_spec_for(scene: CompiledScene, cfg: RayConfig):
-    """FusedSpec when the fused per-bounce Pallas megakernel applies.
-
-    The kernel pays off on real TPU hardware (interpret-mode Pallas is far
-    slower than the XLA path off-TPU), so it engages on the TPU backend by
-    default; SOURCE_TPU_FUSED=1 forces it elsewhere (parity tests) and
-    SOURCE_TPU_FUSED=0 disables it everywhere (A/B debugging)."""
-    import os as _os
-
-    flag = _os.environ.get("SOURCE_TPU_FUSED", "")
-    if flag == "0":
-        return None
-    if jax.default_backend() != "tpu" and flag != "1":
-        return None
-    from .pallas_fused import fused_spec
-
-    return fused_spec(scene, cfg)
-
-
 def trace_step(scene: CompiledScene, cfg: RayConfig, state: RayState, step_key,
-               u=None, differentiable=True):
+               u=None):
     """One wavefront bounce. Returns the next RayState.
 
     ``u`` optionally supplies this bounce's [N, n_uniforms] random draws
     (the drivers hoist the whole span's RNG into one upfront kernel instead
-    of re-entering threefry inside every loop iteration).
-    ``differentiable=False`` (forward-only drivers) lets the intersection
-    consume the leaf-BVH kernel's full winner record without the
-    differentiable recompute."""
+    of re-entering threefry inside every loop iteration)."""
     N = state.origin.shape[0]
     if u is None:
         u = jax.random.uniform(step_key, (N, _n_uniforms(scene)),
@@ -721,14 +696,12 @@ def trace_step(scene: CompiledScene, cfg: RayConfig, state: RayState, step_key,
 
     # park dead lanes far outside every bounding volume: a dead ray keeps
     # its last origin/direction, and re-traversing that stale path every
-    # iteration forces the mesh packet kernels to visit the union of node
-    # sets of lanes that no longer matter. Parked lanes fail the root slab
-    # test immediately. All downstream state updates are gated on
+    # iteration keeps the mesh BVH walk visiting nodes for lanes that no
+    # longer matter. Parked lanes fail the root slab test immediately. All downstream state updates are gated on
     # ``alive & rec.hit`` so their (miss) records never propagate.
     park = jnp.asarray([3.0e7, 3.0e7, 3.0e7], state.origin.dtype)
     origin_q = jnp.where(alive[:, None], state.origin, park)
-    rec = intersect_scene(scene, origin_q, state.direction,
-                          need_grad=differentiable)
+    rec = intersect_scene(scene, origin_q, state.direction)
     if cfg.max_distance != float("inf"):
         # hits beyond the ray's terminating distance are misses
         # (core/ray.pyx:38 semantics, enforced by every accelerator hit)
@@ -798,9 +771,8 @@ def _compact_lanes(st: RayState, divisor: int, lane_ids, radiance_full, key):
     """
     N = st.origin.shape[0]
     M = max(1, N // divisor)
-    # cumsum PARTITION instead of a sort (round-5: the lax.sort pass was
-    # the single largest device-side item of the fwd+bwd step, ~3.3 ms at
-    # 262k lanes — two prefix sums + one scatter are O(N) and ~VPU-free).
+    # cumsum PARTITION instead of a sort: two prefix sums + one scatter
+    # are O(N), where a sort is O(N log N).
     # Under overflow the survivors are a random ROTATION of the alive
     # ranks: every alive lane's marginal keep probability is exactly M/A,
     # so the 1/p reweighting stays unbiased (rotation replaces the old iid
@@ -838,13 +810,6 @@ def _compact_lanes(st: RayState, divisor: int, lane_ids, radiance_full, key):
     return sub, lane_ids, radiance_full
 
 
-def _kernel_seed(key):
-    """Two i32 scalars derived from a trace key, seeding the span kernels'
-    TPU hardware PRNG (pallas_fused.rng_mode() == 'kernel')."""
-    bits = jax.random.bits(key, (2,), jnp.uint32)
-    return jax.lax.bitcast_convert_type(bits, jnp.int32)
-
-
 def trace_rays(scene: CompiledScene, cfg: RayConfig, state: RayState, key):
     """Trace to termination with an early-exit while loop. Returns final state.
 
@@ -855,28 +820,10 @@ def trace_rays(scene: CompiledScene, cfg: RayConfig, state: RayState, key):
     """
 
     n_u = _n_uniforms(scene)
-    fspec = _fused_spec_for(scene, cfg)
 
     def run_range(st, start, end):
         nsteps = end - start
         span_key = jax.random.fold_in(key, 0x7A000 + start)
-
-        if fspec is not None:
-            from .pallas_fused import (
-                fused_forward_span, rng_mode, span_mode,
-            )
-
-            if rng_mode() == "kernel" and span_mode() == "multi":
-                # TPU-PRNG draws inside the span kernel: no threefry pass,
-                # no u packing/HBM traffic (round-5; see pallas_fused)
-                return fused_forward_span(
-                    scene, fspec, st, seed=_kernel_seed(span_key),
-                    n_steps=nsteps, early_exit=cfg.early_exit)
-            u_all = jax.random.uniform(
-                span_key, (nsteps, st.origin.shape[0], n_u),
-                st.origin.dtype)
-            return fused_forward_span(scene, fspec, st, u_all,
-                                      early_exit=cfg.early_exit)
 
         # hoist the whole span's RNG into one kernel (threefry re-entry per
         # bounce costs both compute and launches inside the serial loop)
@@ -891,16 +838,14 @@ def trace_rays(scene: CompiledScene, cfg: RayConfig, state: RayState, key):
 
             def body(carry):
                 i, s = carry
-                s = trace_step(scene, cfg, s, None, u=u_all[i - start],
-                               differentiable=False)
+                s = trace_step(scene, cfg, s, None, u=u_all[i - start])
                 return i + 1, s
 
             _, final = jax.lax.while_loop(cond, body, (jnp.int32(start), st))
             return final
 
         def fbody(i, s):
-            return trace_step(scene, cfg, s, None, u=u_all[i - start],
-                              differentiable=False)
+            return trace_step(scene, cfg, s, None, u=u_all[i - start])
 
         return jax.lax.fori_loop(start, end, fbody, st)
 
@@ -974,26 +919,12 @@ def trace_rays_diff(scene: CompiledScene, cfg: RayConfig, state: RayState, key):
 
     block = _block if cfg.remat_block == 0 else jax.checkpoint(_block)
 
-    fspec = _fused_spec_for(scene, cfg)
-
     def run_span(st, start, stop):
         """Scan [start, stop) bounces in remat blocks (remainder block last),
         with the span's RNG hoisted into one upfront kernel."""
         R = max(1, int(cfg.remat_block))
         n = stop - start
         span_key = jax.random.fold_in(key, 0x7A000 + start)
-        if fspec is not None:
-            from .pallas_fused import fused_span, general_spec, rng_mode
-
-            # fast leaf records are forward-only (their world-space
-            # expressions carry different w2l cotangents); differentiate
-            # the general representation
-            if rng_mode() == "kernel":
-                return fused_span(scene, general_spec(fspec), st,
-                                  seed=_kernel_seed(span_key), n_steps=n)
-            u_all = jax.random.uniform(
-                span_key, (n, st.origin.shape[0], n_u), st.origin.dtype)
-            return fused_span(scene, general_spec(fspec), st, u_all)
         u_all = jax.random.uniform(
             span_key, (n, st.origin.shape[0], n_u), st.origin.dtype,
         )
@@ -1049,8 +980,7 @@ def alive_profile(scene: CompiledScene, cfg: RayConfig, state: RayState, key):
     compaction schedule (one fixed-length scan, no radiance bookkeeping)."""
 
     def body(st, i):
-        nxt = trace_step(scene, cfg, st, jax.random.fold_in(key, i),
-                         differentiable=False)
+        nxt = trace_step(scene, cfg, st, jax.random.fold_in(key, i))
         return nxt, jnp.sum(st.alive.astype(jnp.int32))
 
     _, counts = jax.lax.scan(body, state, jnp.arange(cfg.max_iters))
@@ -1096,8 +1026,7 @@ def trace_rays_logged(scene: CompiledScene, cfg: RayConfig, state: RayState, key
 
     def body(st, i):
         rec = intersect_scene(scene, st.origin, st.direction)
-        nxt = trace_step(scene, cfg, st, jax.random.fold_in(key, i),
-                         differentiable=False)
+        nxt = trace_step(scene, cfg, st, jax.random.fold_in(key, i))
         valid = st.alive & rec.hit
         mat_id = vmath.select_rows(
             scene.entity_material, jnp.maximum(rec.entity, 0)

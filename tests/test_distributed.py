@@ -1,6 +1,6 @@
 """Multi-host scaffolding (parallel/distributed.py) — single-process paths.
 
-Real multi-host runs need N processes over DCN; these tests cover the
+Real multi-process runs need N processes; these tests cover the
 process-group wrapper's no-op path, the global-array assembly on a local
 mesh, and the DistributedEngine sharding contract on the virtual 8-device
 CPU mesh."""
@@ -19,6 +19,19 @@ def test_initialise_single_process_noop():
     assert not distributed.is_initialised()
     assert distributed.process_count() == 1
     assert distributed.process_index() == 0
+
+
+@pytest.mark.parametrize("given,n_proc,environ,expected", [
+    (None, 4, {}, None),  # one process per host: every card of its host
+    (None, 4, {"JAX_LOCAL_PROCESS_ID": "1"}, [1]),  # host-local rank
+    (None, 4, {"SLURM_LOCALID": "3"}, [3]),
+    (None, 4, {"OMPI_COMM_WORLD_LOCAL_RANK": "2"}, [2]),
+    ([0, 1], 4, {"SLURM_LOCALID": "3"}, [0, 1]),  # an explicit list wins
+    (None, 4, {"JAX_LOCAL_DEVICE_IDS": "2"}, None),  # left to JAX
+    (None, 1, {"JAX_LOCAL_PROCESS_ID": "0"}, None),  # one process: all cards
+])
+def test_one_card_per_process(given, n_proc, environ, expected):
+    assert distributed._local_device_ids(given, n_proc, environ) == expected
 
 
 def test_host_local_shard():

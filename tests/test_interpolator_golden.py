@@ -7,7 +7,7 @@ and the function2d sibling, generated to 12 significant figures and verified
 against scipy 1.6.3 (data module docstrings). These tests reproduce the
 reference's test protocol (test_interpolator.py:44-120) against our
 Interpolator{1,2}DArray. Tolerances are f32-scale: our interpolators
-evaluate in float32 on TPU (the reference is float64 Cython).
+evaluate in float32 on the device (the reference is float64 Cython).
 
 VERDICT round-1 item 3.
 """

@@ -226,6 +226,21 @@ class TestPolyroots:
         )
         np.testing.assert_allclose(np.asarray(roots[0]), [-2, -1, 1, 2], atol=1e-4)
 
+    def test_quartic_with_odd_terms(self):
+        """A quartic whose depressed form keeps its linear term (q != 0),
+        so the Ferrari factor constants z/2 +/- q/(2s) must pair with the
+        right sign of s: (x+3)(x-0.5)(x-1)(x-2)."""
+        import jax.numpy as jnp
+
+        from source_tpu.core.math.polyroots import solve_quartic
+
+        coeffs = np.poly([-3.0, 0.5, 1.0, 2.0])
+        roots, valid = solve_quartic(*[jnp.asarray([c], jnp.float32)
+                                       for c in coeffs])
+        assert np.asarray(valid[0]).all()
+        np.testing.assert_allclose(np.asarray(roots[0]), [-3, 0.5, 1, 2],
+                                   atol=1e-4)
+
 
 class TestStats:
     def test_statsarray_merge_matches_numpy(self):

@@ -1,6 +1,7 @@
-"""All-pairs MXU mesh intersection (`_mesh_intersect_dense`) must agree
-with the stackless BVH XLA path exactly (same t/u/v/front/winner up to
-f32 tie-breaks) and stay differentiable w.r.t. vertices."""
+"""The dense all-pairs mesh test (`mesh_forest_intersect`, here on one
+mesh with an identity transform) must agree with the stackless BVH walk
+(same t/u/v/front/winner up to f32 tie-breaks) and stay differentiable
+w.r.t. vertices."""
 
 import numpy as np
 import jax
@@ -8,8 +9,12 @@ import jax.numpy as jnp
 
 from source_tpu.primitive.mesh.data import MeshData
 from source_tpu.tracer.meshtrace import (
-    _mesh_intersect_dense, _mesh_intersect_xla_diff,
+    _mesh_intersect_xla_diff, mesh_forest_intersect,
 )
+
+
+def _dense(mesh, o, d, t_min):
+    return mesh_forest_intersect([mesh], o, d, t_min)[0]
 
 
 def _icosahedron():
@@ -48,7 +53,7 @@ def test_dense_matches_xla_path():
     o, d = _rays()
     t_min = jnp.zeros(o.shape[0], jnp.float32)
     ref = _mesh_intersect_xla_diff(mesh, o, d, t_min)
-    got = _mesh_intersect_dense(mesh, o, d, t_min)
+    got = _dense(mesh, o, d, t_min)
 
     hit_ref = np.asarray(ref["tri"] >= 0)
     hit_got = np.asarray(got["tri"] >= 0)
@@ -76,10 +81,10 @@ def test_dense_respects_t_min():
     mesh = _tables()
     o, d = _rays(64, seed=3)
     t_min = jnp.zeros(64, jnp.float32)
-    first = _mesh_intersect_dense(mesh, o, d, t_min)
+    first = _dense(mesh, o, d, t_min)
     m = np.asarray(first["tri"] >= 0)
     # re-march from just past the first hit: second hit must be farther
-    second = _mesh_intersect_dense(mesh, o, d, first["t"] + 1e-4)
+    second = _dense(mesh, o, d, first["t"] + 1e-4)
     hit2 = np.asarray(second["tri"] >= 0)
     assert (np.asarray(second["t"])[m & hit2] >
             np.asarray(first["t"])[m & hit2]).all()
@@ -90,7 +95,6 @@ def test_forest_matches_per_mesh():
     traversal, including a mirrored (negative-determinant) instance."""
     import jax.numpy as jnp
     from source_tpu.core.math import batch as vmath
-    from source_tpu.tracer.meshtrace import mesh_forest_intersect
     import dataclasses
 
     verts, faces = _icosahedron()
@@ -137,7 +141,7 @@ def test_dense_gradients_flow_to_vertices():
     def loss(verts):
         import dataclasses
         m2 = dataclasses.replace(mesh, vertices=verts)
-        res = _mesh_intersect_dense(m2, o, d, t_min)
+        res = _dense(m2, o, d, t_min)
         hit = res["tri"] >= 0
         return jnp.sum(jnp.where(hit, res["t"], 0.0))
 

@@ -82,7 +82,7 @@ def test_csg_volume_uses_entity_frame():
 
 def test_integrator_step_derives_interval_count():
     """intervals = max(min_samples-1, ceil(chord_bound/step)) capped by
-    max_samples (TPU static bound). Verified against the reference rule
+    max_samples (a static bound under jit). Verified against the reference rule
     (inhomogeneous.pyx:135-139) and the exact trapezoid value it implies."""
     def rho_z2(p_local, d_local, lam):
         rho = p_local[..., 2] ** 2
